@@ -1,0 +1,562 @@
+# Copied from src/repro/core/device/request_scheduler.py; only the imports may differ.
+"""Continuous-batching request scheduler with per-request strategies.
+
+Serving requests ARE tasks — literally: every waiting request (and every
+pending prefill *chunk* of one) is a :class:`~repro.core.task.Task` in a
+:class:`~repro.core.task_storage.StrategyTaskStorage`, the same structure
+the paper's scheduler uses for its apps.  The strategy fields map onto
+
+* priority          — SLO class + deadline: admission order into the batch
+                      (``admission="fifo"`` swaps in an arrival-ordered
+                      strategy — the baseline the paper argues against),
+* transitive weight — prompt tokens still to prefill + estimated decode
+                      length: the work estimate ``steal_batch`` consults for
+                      cross-replica steal-half-work rebalancing,
+* dead tasks        — cancelled / expired requests are pruned by the storage
+                      on pop/steal, never admitted, never migrated,
+* task merging      — prefills are merged ("chunked prefill") under the
+                      shared :class:`~repro.core.strategy.MergePolicy`; long
+                      prompts are split into chunk tasks that re-enter the
+                      storage between chunks (so a half-prefilled request can
+                      still be preempted by an urgent arrival, or stolen),
+* spawn-to-call     — single-token follow-ups (remaining prefill at or below
+                      ``spawn_to_call_tokens``) ride along with any planned
+                      chunk instead of paying their own scheduling round-trip.
+
+Host-level and model-agnostic: :meth:`ContinuousBatcher.plan_step` only
+produces the batch composition; the serving engine executes it.
+"""
+from __future__ import annotations
+
+import itertools
+import time
+from dataclasses import dataclass, field
+from enum import Enum
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..strategy import MergePolicy, PriorityStrategy
+from ..task import FinishRegion, Task
+from ..task_storage import StrategyTaskStorage
+
+__all__ = ["Request", "RequestState", "RequestStrategy",
+           "FifoRequestStrategy", "CacheAwareStrategy", "ContinuousBatcher",
+           "BatchPlan", "AdmissionRejected", "rebalance_replicas"]
+
+
+class AdmissionRejected(ValueError):
+    """A replica's admission policy bounced the request (e.g. the KV
+    overflow check).  Routers treat it as a per-request outcome; any other
+    exception from a replica is a real bug and stays loud."""
+
+_rid = itertools.count()
+
+
+class RequestState(Enum):
+    WAITING = 0
+    PREFILL = 1
+    RUNNING = 2
+    DONE = 3
+    CANCELLED = 4
+
+
+@dataclass
+class Request:
+    prompt_len: int
+    max_new_tokens: int
+    priority: float = 1.0           # lower = more urgent (SLO class)
+    deadline: Optional[float] = None
+    arrival: float = field(default_factory=time.monotonic)
+    rid: int = field(default_factory=lambda: next(_rid))
+    state: RequestState = RequestState.WAITING
+    generated: int = 0
+    prefilled: int = 0
+    first_token_at: Optional[float] = None
+    finished_at: Optional[float] = None
+    #: prompt tokens covered by the local prefix cache (set by the engine /
+    #: sim replica probe; reset to 0 when the request migrates — cache
+    #: affinity does not travel)
+    cached_prefix: int = 0
+    #: synthetic shared-prefix identity for the simulator's workload model
+    #: (None = cold prompt); live engines hash real tokens instead
+    prefix_group: Optional[int] = None
+    prefix_len: int = 0
+    #: speculative decoding: current per-request depth hint (0 = not
+    #: speculated) and running acceptance-rate estimate — set by the
+    #: engine's Speculator (or the sim's workload model); reset is not
+    #: needed on migration because in-flight speculation never travels
+    spec_k: int = 0
+    spec_accept: float = 0.0
+
+    @property
+    def est_remaining_work(self) -> int:
+        """Transitive weight: tokens still to process."""
+        return max(self.prompt_len - self.prefilled, 0) + \
+            max(self.max_new_tokens - self.generated, 0)
+
+    @property
+    def remaining_prefill(self) -> int:
+        return max(self.prompt_len - self.prefilled, 0)
+
+    @property
+    def uncached_prefill(self) -> int:
+        """Prompt tokens that still cost prefill compute *here*: the cached
+        prefix is adopted, not recomputed."""
+        return max(self.prompt_len - max(self.prefilled, self.cached_prefix),
+                   0)
+
+    @property
+    def est_uncached_work(self) -> int:
+        """Transitive weight discounted by the local prefix cache — what a
+        cache-aware scheduler should treat as this request's cost."""
+        return self.uncached_prefill + \
+            max(self.max_new_tokens - self.generated, 0)
+
+    def cancel(self) -> None:
+        if self.state not in (RequestState.DONE,):
+            self.state = RequestState.CANCELLED
+
+    def reset_for_replay(self) -> None:
+        """Crash recovery: the owning replica died holding this request's
+        KV blocks and any undelivered tokens, so progress rewinds to a
+        cold start.  The ``arrival`` stamp survives — latency keeps
+        counting across the crash — and the replacement replica's prefix
+        cache is re-probed at re-admission, so a published prefix chain is
+        re-adopted and only the uncached remainder re-prefills."""
+        self.state = RequestState.WAITING
+        self.prefilled = 0
+        self.generated = 0
+        self.cached_prefix = 0
+        self.first_token_at = None
+        self.finished_at = None
+        self.spec_k = 0
+
+
+class RequestStrategy(PriorityStrategy):
+    """SLO-class / deadline / arrival priority; dead when cancelled or past
+    its deadline; stolen heaviest-remaining-work first (migrating a request
+    has per-request cost, so a thief asked for N tokens of work should take
+    as few requests as possible — steal work, not count)."""
+
+    __slots__ = ("request", "_now")
+
+    def __init__(self, request: Request, now: Callable[[], float]):
+        super().__init__(priority=self._key(request),
+                         transitive_weight=request.est_remaining_work)
+        self.request = request
+        self._now = now
+
+    @staticmethod
+    def _key(request: Request):
+        # tuple priorities compare lexicographically
+        return (request.priority, request.deadline or np.inf, request.arrival)
+
+    @classmethod
+    def key_arity(cls) -> int:
+        """Length of this class's priority tuple, probed on a throwaway
+        request.  Strategies that may share a storage must produce
+        element-wise-comparable keys; ``serving.speculative`` asserts its
+        spec-task tuples against this at import time, and
+        ``repro.analysis.schedlint`` checks the whole cohort."""
+        probe = Request(prompt_len=1, max_new_tokens=1)
+        return len(cls._key(probe))
+
+    def is_dead(self) -> bool:
+        r = self.request
+        if r.state == RequestState.CANCELLED:
+            return True
+        if r.deadline is not None and r.state == RequestState.WAITING \
+                and self._now() > r.deadline:
+            return True
+        return False
+
+    def steal_prioritize(self, other) -> bool:
+        if isinstance(other, RequestStrategy):
+            mine = self.request.est_remaining_work
+            theirs = other.request.est_remaining_work
+            if mine != theirs:
+                return mine > theirs
+            return self.request.arrival < other.request.arrival
+        return super().steal_prioritize(other)
+
+
+class FifoRequestStrategy(RequestStrategy):
+    """Arrival-ordered admission, oblivious to SLO class and deadline — the
+    classic FIFO continuous-batching baseline (``admission="fifo"``)."""
+
+    __slots__ = ()
+
+    @staticmethod
+    def _key(request: Request):
+        return (request.arrival, request.rid)
+
+
+class CacheAwareStrategy(RequestStrategy):
+    """SLO priority that also sees the prefix cache: within a class, cheap
+    (mostly-cached) prompts admit first — they free a slot sooner and their
+    hot blocks are adopted before pool pressure evicts them — and the steal
+    weight is the *uncached* remaining work, so a 90%-cached long prompt is
+    not stolen (and recomputed cold on the thief) as if it were heavy.  The
+    order relaxation is safe in the Wimmer et al. sense: arrival still
+    breaks ties, only the cost model changes (``admission="cache_aware"``)."""
+
+    __slots__ = ()
+
+    def __init__(self, request: Request, now: Callable[[], float]):
+        super().__init__(request, now)
+        self.set_transitive_weight(request.est_uncached_work)
+
+    @staticmethod
+    def _key(request: Request):
+        return (request.priority, request.deadline or np.inf,
+                request.uncached_prefill, request.arrival)
+
+    def steal_prioritize(self, other) -> bool:
+        if isinstance(other, CacheAwareStrategy):
+            mine = self.request.est_uncached_work
+            theirs = other.request.est_uncached_work
+            if mine != theirs:
+                return mine > theirs        # heaviest UNCACHED work first
+            return self.request.arrival < other.request.arrival
+        return super().steal_prioritize(other)
+
+
+@dataclass
+class BatchPlan:
+    """What the engine should run this step."""
+    decode: List[Request] = field(default_factory=list)
+    prefill: List[Request] = field(default_factory=list)   # merged chunk
+    #: rid -> prompt tokens to process this step (chunked prefill: may be
+    #: less than the request's remaining prompt)
+    prefill_chunks: Dict[int, int] = field(default_factory=dict)
+    prefill_tokens: int = 0
+    evicted: List[Request] = field(default_factory=list)
+    admitted: List[Request] = field(default_factory=list)
+
+
+def _noop() -> None:
+    """Body of a request task: execution belongs to the serving engine; the
+    storage only orders, prunes and steals."""
+
+
+class ContinuousBatcher:
+    """One replica's scheduler.  ``max_batch`` bounds concurrent decode
+    slots; ``prefill_token_budget`` is the merged-prefill chunk size;
+    ``prefill_chunk`` (tokens) splits long prompts into chunk tasks (None =
+    whole-prompt prefill)."""
+
+    def __init__(self, max_batch: int = 32, prefill_token_budget: int = 2048,
+                 now: Callable[[], float] = time.monotonic,
+                 merge_policy: Optional[MergePolicy] = None,
+                 prefill_chunk: Optional[int] = None,
+                 admission: str = "strategy",
+                 spawn_to_call_tokens: int = 1,
+                 place_id: int = 0):
+        if admission not in ("strategy", "fifo", "cache_aware"):
+            raise ValueError(f"unknown admission mode {admission!r}")
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1")
+        self.max_batch = max_batch
+        self.prefill_token_budget = prefill_token_budget
+        self.prefill_chunk = prefill_chunk
+        self.admission = admission
+        self.spawn_to_call_tokens = spawn_to_call_tokens
+        # The scheduler's task-merging thresholds, reused for request
+        # admission: the merged-prefill chunk grows with waiting-queue depth
+        # (a shallow queue admits prefills one by one — no latency cost for
+        # merging nobody needs).
+        self.merge_policy = merge_policy or MergePolicy()
+        self.now = now
+        self._strategy_cls = {"strategy": RequestStrategy,
+                              "fifo": FifoRequestStrategy,
+                              "cache_aware": CacheAwareStrategy}[admission]
+        # load/steal accounting cost model: cache-aware mode discounts the
+        # locally-cached prefix (it is adopted, not recomputed)
+        self._weight_of = ((lambda r: r.est_uncached_work)
+                           if admission == "cache_aware"
+                           else (lambda r: r.est_remaining_work))
+        #: engine hook: False forces whole-prompt prefill for a request
+        #: (e.g. prompts longer than the paged ring, which must go through
+        #: the ring-aligning dense prefill)
+        self.chunk_eligible: Callable[[Request], bool] = lambda r: True
+        #: engine hook: called when the storage prunes a dead request (the
+        #: engine releases its KV blocks / prompt buffers)
+        self.on_request_pruned: Optional[Callable[[Request], None]] = None
+        self.storage = StrategyTaskStorage(place_id, on_prune=self._on_prune)
+        self._region = FinishRegion()          # storage requires one; unused
+        self._tasks: Dict[int, Task] = {}      # rid -> waiting task
+        self.running: Dict[int, Request] = {}
+        self.metrics = {"admitted": 0, "evicted_dead": 0,
+                        "merged_prefills": 0, "steps": 0,
+                        "deadline_misses": 0, "prefill_chunks": 0,
+                        "calls_converted": 0, "preempted": 0,
+                        "rejected": 0, "truncated": 0,
+                        "wrapped_oversize": 0}
+        # thieves probe load counters far more often than queues mutate, so
+        # the O(queue) scans are cached behind a mutation version stamp
+        self._version = 0
+        self._cache_version = -1
+        self._cached: Tuple[int, int, int] = (0, 0, 0)
+
+    def _bump(self) -> None:
+        self._version += 1
+
+    def _on_prune(self, task: Task) -> None:
+        """Storage pruned a dead request (pop/steal/claim paths)."""
+        req = task.strategy.request
+        self._tasks.pop(req.rid, None)
+        self.metrics["evicted_dead"] += 1
+        if req.deadline is not None and self.now() > req.deadline \
+                and req.state != RequestState.CANCELLED:
+            self.metrics["deadline_misses"] += 1
+        if self.on_request_pruned is not None:
+            self.on_request_pruned(req)
+        self._bump()
+
+    def _load_counters(self) -> Tuple[int, int, int]:
+        """(waiting_count, waiting_weight, running_weight), cached.  Dead
+        requests (cancelled / deadline-expired) are excluded — they will
+        never run, so they are not load.  A cancel() between mutations can
+        be reflected one read late; every plan/pop/steal resyncs."""
+        if self._cache_version != self._version:
+            n = w = 0
+            for task in self._tasks.values():
+                st = task.strategy
+                if st.request.state == RequestState.WAITING \
+                        and not st.is_dead():
+                    n += 1
+                    w += self._weight_of(st.request)
+            rw = sum(self._weight_of(r) for r in self.running.values())
+            self._cached = (n, w, rw)
+            self._cache_version = self._version
+        return self._cached
+
+    # -- queue ops ----------------------------------------------------------
+    def submit(self, request: Request) -> None:
+        task = Task(_noop, (), {}, self._strategy_cls(request, self.now),
+                    self._region)
+        self._tasks[request.rid] = task
+        self.storage.push(task)
+        self._bump()
+
+    def submit_many(self, requests: Sequence[Request]) -> None:
+        for r in requests:
+            self.submit(r)
+
+    @property
+    def waiting_count(self) -> int:
+        return self._load_counters()[0]
+
+    def waiting_weight(self) -> int:
+        """Estimated work sitting in the queue — the stealable part."""
+        return self._load_counters()[1]
+
+    def backlog_weight(self) -> int:
+        """Estimated outstanding work (for cross-replica stealing)."""
+        c = self._load_counters()
+        return c[1] + c[2]
+
+    def steal_waiting(self, target_weight: int,
+                      thief_id: int = -1) -> List[Request]:
+        """Remove waiting requests worth ~``target_weight`` for migration to
+        another replica — the paper's steal-half-work, delegated to the task
+        storage's ``steal_batch`` (heaviest-remaining-work steal order via
+        :meth:`RequestStrategy.steal_prioritize`; dead requests pruned, never
+        migrated).  Partially-prefilled requests migrate too: their processed
+        KV travels with them (the engine exports the chunk block tables)."""
+        stolen, _ = self.storage.steal_batch(thief_id, half_work=True,
+                                             target_weight=target_weight)
+        out = []
+        for task in stolen:
+            req = task.strategy.request
+            self._tasks.pop(req.rid, None)
+            out.append(req)
+        if stolen:
+            self._bump()
+        return out
+
+    def steal_waiting_count(self, n: int) -> List[Request]:
+        """Remove up to ``n`` waiting requests oldest-first (the classic
+        FIFO steal order, oblivious to weight) for migration to another
+        replica.  The steal-half-*count* baseline the paper argues against."""
+        items = sorted(self._tasks.values(),
+                       key=lambda t: t.strategy.request.arrival)
+        out: List[Request] = []
+        for task in items:
+            if len(out) >= max(0, n):
+                break
+            if self.storage.claim(task):       # prunes dead on sight
+                req = task.strategy.request
+                self._tasks.pop(req.rid, None)
+                out.append(req)
+        if out:
+            self._bump()
+        return out
+
+    def pop_next_waiting(self) -> Optional[Request]:
+        """Public admission primitive: highest-strategy-priority live waiting
+        request, with dead requests pruned (and counted) on the way."""
+        task = self.storage.pop_local()
+        if task is None:
+            return None
+        req = task.strategy.request
+        self._tasks.pop(req.rid, None)
+        self._bump()
+        return req
+
+    # -- external-executor hooks (the cluster simulator models execution
+    #    itself, bypassing plan_step, but must keep load counters honest) --
+    def mark_running(self, request: Request) -> None:
+        request.state = RequestState.RUNNING
+        self.running[request.rid] = request
+        self._bump()
+
+    def finish_running(self, request: Request) -> None:
+        self.running.pop(request.rid, None)
+        self._bump()
+
+    # -- planning -----------------------------------------------------------
+    def chunk_tokens_for(self, request: Request) -> int:
+        """Prompt tokens the next prefill step of ``request`` processes."""
+        rem = request.remaining_prefill
+        if self.prefill_chunk is None or not self.chunk_eligible(request):
+            return rem
+        return min(rem, self.prefill_chunk)
+
+    def waiting_requests(self) -> List[Request]:
+        """Live waiting requests (preemption-victim scan; not an admission
+        API — admission goes through :meth:`pop_next_waiting`)."""
+        return [t.strategy.request for t in self._tasks.values()
+                if t.strategy.request.state == RequestState.WAITING
+                and not t.strategy.is_dead()]
+
+    def preempt_waiting(self, request: Request) -> bool:
+        """Recompute-preempt a *waiting* chunk-holder: claim it out of the
+        storage, drop its prefill progress (the engine frees the KV blocks)
+        and resubmit it unprefilled.  Returns False if it was already gone
+        (or died — pruned on sight)."""
+        task = self._tasks.get(request.rid)
+        if task is None or not self.storage.claim(task):
+            return False
+        self._tasks.pop(request.rid, None)
+        request.prefilled = 0
+        self.metrics["preempted"] += 1
+        self.submit(request)
+        return True
+
+    def plan_step(self) -> BatchPlan:
+        plan = BatchPlan()
+        self.metrics["steps"] += 1
+        # 1. evict dead/finished from the running batch
+        for rid in list(self.running):
+            r = self.running[rid]
+            if r.state in (RequestState.DONE, RequestState.CANCELLED) or \
+                    r.generated >= r.max_new_tokens:
+                if r.state != RequestState.CANCELLED:
+                    r.state = RequestState.DONE
+                    r.finished_at = self.now()
+                plan.evicted.append(self.running.pop(rid))
+        # 2. admit waiting requests by strategy priority (dead pruned inline)
+        # The merged-prefill chunk size follows the shared MergePolicy: the
+        # deeper the waiting queue, the more prefills coalesce per step.
+        max_prefill = self.merge_policy.chunk_size(self.waiting_count,
+                                                   self.max_batch)
+        while len(self.running) + len(plan.prefill) < self.max_batch:
+            req = self.pop_next_waiting()
+            if req is None:
+                break
+            chunk = self.chunk_tokens_for(req)
+            if chunk > 0:
+                tiny = chunk <= self.spawn_to_call_tokens
+                if plan.prefill and not tiny and (
+                        len(plan.prefill) >= max_prefill
+                        or plan.prefill_tokens + chunk
+                        > self.prefill_token_budget):
+                    # chunk full; leave for next step
+                    self.submit(req)
+                    break
+                if tiny and plan.prefill:
+                    # spawn-to-call: a single-token follow-up rides along
+                    # with the planned chunk instead of paying its own
+                    # scheduling round-trip (no budget/merge-cap check).
+                    self.metrics["calls_converted"] += 1
+                req.state = RequestState.PREFILL
+                plan.prefill.append(req)
+                plan.prefill_chunks[req.rid] = chunk
+                plan.prefill_tokens += chunk
+            else:
+                req.state = RequestState.RUNNING
+                self.running[req.rid] = req
+                plan.admitted.append(req)
+        if len(plan.prefill) > 1:
+            self.metrics["merged_prefills"] += len(plan.prefill) - 1
+        # 3. everyone running decodes one token this step
+        plan.decode = list(self.running.values())
+        self.metrics["admitted"] += len(plan.prefill) + len(plan.admitted)
+        self._bump()            # running-set / queue mutations above
+        return plan
+
+    # -- engine callbacks ----------------------------------------------------
+    def complete_prefill_chunk(self, request: Request, tokens: int) -> bool:
+        """A prefill chunk of ``tokens`` prompt tokens finished.  Returns
+        True when the whole prompt is now prefilled (the request moved to
+        the running batch); otherwise the request re-enters the waiting
+        storage as a fresh chunk task — where an urgent arrival can overtake
+        it, or a thief can steal it (with its processed KV)."""
+        request.prefilled = min(request.prompt_len,
+                                request.prefilled + tokens)
+        self.metrics["prefill_chunks"] += 1
+        if request.remaining_prefill > 0:
+            request.state = RequestState.WAITING
+            self.submit(request)
+            return False
+        request.state = RequestState.RUNNING
+        if request.first_token_at is None:
+            request.first_token_at = self.now()
+        self.running[request.rid] = request
+        self._bump()
+        return True
+
+    def complete_prefill(self, requests: Sequence[Request]) -> None:
+        for r in requests:
+            self.complete_prefill_chunk(r, r.remaining_prefill)
+
+    def complete_decode(self, requests: Sequence[Request]) -> None:
+        for r in requests:
+            r.generated += 1
+        self._bump()
+
+    def preempt(self, request: Request) -> None:
+        """Recompute preemption: the engine dropped the request's KV (block
+        pool pressure); it restarts from an unprefilled waiting state."""
+        self.running.pop(request.rid, None)
+        request.prefilled = 0
+        request.state = RequestState.WAITING
+        self.metrics["preempted"] += 1
+        self.submit(request)
+
+
+def rebalance_replicas(batchers: Sequence[ContinuousBatcher]) -> int:
+    """Cross-replica steal-half-work: idle replicas steal half the surplus
+    backlog (by estimated work) from the most loaded one.  Returns number of
+    migrated requests."""
+    loads = np.array([b.backlog_weight() for b in batchers], np.float64)
+    if loads.sum() == 0:
+        return 0
+    mean = loads.mean()
+    moved = 0
+    for _ in range(len(batchers)):
+        rich, poor = int(np.argmax(loads)), int(np.argmin(loads))
+        surplus = loads[rich] - mean
+        if surplus <= mean * 0.1 or rich == poor:
+            break
+        stolen = batchers[rich].steal_waiting(int(surplus / 2))
+        if not stolen:
+            break
+        batchers[poor].submit_many(stolen)
+        w = sum(r.est_remaining_work for r in stolen)
+        loads[rich] -= w
+        loads[poor] += w
+        moved += len(stolen)
+    return moved

@@ -1,0 +1,395 @@
+# Copied from src/repro/serving/paged_kv.py; only the imports may differ.
+"""Paged KV cache: host-side block allocator + per-request block tables.
+
+The device side is a shared physical pool of fixed-size KV blocks
+(``[num_blocks, block_size, kvH, hd]`` per layer — see
+``models.attention.PagedKVCache``); this module owns the *accounting*: which
+physical blocks belong to which request, what is free, what is cached, and
+the padded ``int32`` table rows the decode/prefill kernels gather through.
+
+Layout invariants the device code relies on:
+
+* logical token slot ``s`` of a request lives in its ``s // block_size``-th
+  block at offset ``s % block_size`` (ring position ``s = pos % capacity``);
+* block **0 is the sink**: it is never allocated, every padded table entry
+  points at it, and decode writes from empty batch slots land there — its
+  contents are garbage by design and always masked out by ``kv_valid``;
+* a physical block may appear in *several* tables (prefix sharing) but is
+  only ever **written** by a request that holds it exclusively — writers go
+  through :meth:`BlockAllocator.prepare_write`, which copy-on-write forks a
+  shared block before the write lands.
+
+Prefix caching (copy-on-write block sharing):
+
+* full prompt blocks are keyed by a **chained content hash**
+  (:func:`prefix_block_keys`): ``key_i = H(key_{i-1} || tokens_of_block_i)``,
+  so a key identifies the whole token prefix up to and including block ``i``,
+  not just the block's own tokens;
+* a finished prefill *publishes* its full blocks into the prefix index
+  (:meth:`publish_prefix`); a new request *adopts* the longest cached chain
+  as the head of its table (:meth:`adopt_prefix`) and only prefills the
+  remainder;
+* :meth:`free` decrements refcounts instead of releasing: a block whose
+  refcount hits zero returns to the free list unless it is published, in
+  which case it joins the **LRU tail of cached blocks** — still adoptable,
+  and reclaimed oldest-first by pool-pressure eviction *before*
+  :class:`PoolExhausted` forces the engine into recompute preemption.
+
+Allocation is on-demand (a request holds only the blocks its current length
+needs), which is what makes admission a *memory* decision: the engine admits
+while the pool covers the next chunk and preempts (recompute) under pressure
+only after the cached tail has been drained.
+"""
+from __future__ import annotations
+
+import hashlib
+from collections import OrderedDict
+from typing import Dict, Hashable, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+__all__ = ["BlockAllocator", "PoolExhausted", "SINK_BLOCK",
+           "prefix_block_keys"]
+
+#: physical block id reserved as the write sink for empty decode slots
+SINK_BLOCK = 0
+
+
+class PoolExhausted(RuntimeError):
+    """Not enough free (or cached-evictable) blocks — caller should preempt
+    or defer admission."""
+
+
+def prefix_block_keys(tokens: np.ndarray, block_size: int) -> List[bytes]:
+    """Chained content hash per *full* block of ``tokens``: ``keys[i]``
+    identifies the entire token prefix ``tokens[:(i+1) * block_size]`` (the
+    chain makes equal blocks at different prefix positions distinct).  The
+    trailing partial block, if any, gets no key — only immutable full blocks
+    are shareable."""
+    out: List[bytes] = []
+    toks = np.ascontiguousarray(np.asarray(tokens, np.int32))
+    h = b""
+    for i in range(len(toks) // block_size):
+        blk = toks[i * block_size:(i + 1) * block_size].tobytes()
+        h = hashlib.blake2b(h + blk, digest_size=16).digest()
+        out.append(h)
+    return out
+
+
+class BlockAllocator:
+    """Refcounted free-list allocator over ``num_blocks`` blocks of
+    ``block_size`` tokens with an optional content-addressed prefix cache.
+    Block :data:`SINK_BLOCK` is reserved and never handed out."""
+
+    def __init__(self, num_blocks: int, block_size: int):
+        if num_blocks < 2:
+            raise ValueError("need >= 2 blocks (one is the reserved sink)")
+        if block_size < 1:
+            raise ValueError("block_size must be >= 1")
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        # LIFO free list: recently freed blocks are reused first (their pool
+        # rows are likelier to still be in cache).
+        self._free: List[int] = list(range(num_blocks - 1, 0, -1))
+        self._tables: Dict[int, List[int]] = {}
+        #: block -> number of tables holding it (only blocks with refs > 0)
+        self._refs: Dict[int, int] = {}
+        #: prefix index: chain key -> block, and its inverse
+        self._block_of: Dict[Hashable, int] = {}
+        self._key_of: Dict[int, Hashable] = {}
+        #: cached blocks nobody references, oldest (evict-first) first
+        self._lru: "OrderedDict[int, None]" = OrderedDict()
+        #: bumped on every table mutation — callers cache derived structures
+        #: (the engine's device-side block table) against it
+        self.version = 0
+        # prefix-cache counters (engine telemetry reads these)
+        self.cache_evictions = 0
+        self.cow_forks = 0
+
+    # -- capacity ------------------------------------------------------------
+    @property
+    def total_blocks(self) -> int:
+        """Allocatable blocks (the sink is not allocatable)."""
+        return self.num_blocks - 1
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def num_cached(self) -> int:
+        """Cached-but-unreferenced blocks (the evictable LRU tail)."""
+        return len(self._lru)
+
+    @property
+    def free_tokens(self) -> int:
+        return len(self._free) * self.block_size
+
+    @property
+    def cached_tokens(self) -> int:
+        return len(self._lru) * self.block_size
+
+    @property
+    def num_requests(self) -> int:
+        return len(self._tables)
+
+    def blocks_for_tokens(self, tokens: int) -> int:
+        return -(-max(0, tokens) // self.block_size)
+
+    def can_allocate(self, tokens: int, rid: Optional[int] = None) -> bool:
+        """True iff ``ensure(rid, tokens)`` would succeed right now (the
+        cached LRU tail counts — it is evicted before admission fails)."""
+        have = len(self._tables.get(rid, ())) if rid is not None else 0
+        return self.blocks_for_tokens(tokens) - have \
+            <= len(self._free) + len(self._lru)
+
+    # -- internal ------------------------------------------------------------
+    def _unpublish(self, block: int) -> None:
+        key = self._key_of.pop(block, None)
+        if key is not None:
+            del self._block_of[key]
+
+    def _evict_one(self) -> None:
+        """Reclaim the least-recently-cached unreferenced block."""
+        block, _ = self._lru.popitem(last=False)
+        self._unpublish(block)
+        self._free.append(block)
+        self.cache_evictions += 1
+
+    def _take_blocks(self, need: int) -> List[int]:
+        """Pop ``need`` blocks, draining the cached LRU tail when the free
+        list is short.  Raises :class:`PoolExhausted` *before* any eviction
+        when the pool cannot cover the request (no side effects)."""
+        if need > len(self._free) + len(self._lru):
+            raise PoolExhausted(
+                f"need {need} blocks, {len(self._free)} free + "
+                f"{len(self._lru)} cached")
+        while len(self._free) < need:
+            self._evict_one()
+        return [self._free.pop() for _ in range(need)]
+
+    # -- per-request tables ---------------------------------------------------
+    def blocks_of(self, rid: int) -> List[int]:
+        return list(self._tables.get(rid, ()))
+
+    def allocated_tokens(self, rid: int) -> int:
+        return len(self._tables.get(rid, ())) * self.block_size
+
+    def ensure(self, rid: int, tokens: int) -> List[int]:
+        """Grow ``rid``'s table to cover ``tokens`` logical tokens.  Returns
+        the newly allocated block ids (empty when already covered).  Cached
+        unreferenced blocks are evicted (oldest first) before the pool is
+        declared short; raises :class:`PoolExhausted` without side effects
+        when even that cannot cover the request."""
+        table = self._tables.get(rid)
+        if table is None:
+            table = self._tables[rid] = []
+        need = self.blocks_for_tokens(tokens) - len(table)
+        if need <= 0:
+            return []
+        try:
+            new = self._take_blocks(need)
+        except PoolExhausted:
+            if not table:
+                del self._tables[rid]
+            raise
+        table.extend(new)
+        for b in new:
+            self._refs[b] = 1
+        self.version += 1
+        return new
+
+    def free(self, rid: int) -> int:
+        """Drop every table reference of ``rid``.  Returns the number of
+        blocks whose refcount hit zero (published ones join the cached LRU
+        tail instead of the free list).  Freeing an unknown (or already
+        freed) request raises — a double free is an accounting bug, not a
+        condition to paper over."""
+        table = self._tables.pop(rid, None)
+        if table is None:
+            raise KeyError(f"request {rid} holds no blocks (double free?)")
+        released = 0
+        for b in table:
+            n = self._refs[b] - 1
+            if n > 0:
+                self._refs[b] = n
+                continue
+            del self._refs[b]
+            released += 1
+            if b in self._key_of:
+                self._lru[b] = None          # cached: evictable, adoptable
+            else:
+                self._free.append(b)
+        self.version += 1
+        return released
+
+    def release(self, rid: int) -> int:
+        """Like :meth:`free` but tolerant of requests that never allocated
+        (the engine's eviction path sees both)."""
+        if rid not in self._tables:
+            return 0
+        return self.free(rid)
+
+    def truncate(self, rid: int, tokens: int) -> int:
+        """Speculation rollback: shrink ``rid``'s table from the *tail* to
+        exactly cover ``tokens`` logical tokens, dropping the blocks that
+        only held rejected draft K/V.  Trailing blocks are released with
+        :meth:`free` semantics — refcounts decrement, shared blocks survive
+        in the other tables, published zero-ref blocks join the cached LRU
+        tail — so a rollback can never corrupt a published prefix, only
+        un-hold it.  Returns the number of table entries dropped."""
+        table = self._tables.get(rid)
+        if table is None:
+            return 0
+        keep = self.blocks_for_tokens(tokens)
+        dropped = 0
+        while len(table) > keep:
+            b = table.pop()
+            dropped += 1
+            n = self._refs[b] - 1
+            if n > 0:
+                self._refs[b] = n
+                continue
+            del self._refs[b]
+            if b in self._key_of:
+                self._lru[b] = None          # cached: evictable, adoptable
+            else:
+                self._free.append(b)
+        if dropped:
+            self.version += 1
+        return dropped
+
+    # -- prefix cache ---------------------------------------------------------
+    def match_prefix(self, keys: Sequence[Hashable]) -> int:
+        """Longest cached chain: number of leading ``keys`` present in the
+        prefix index.  Pure probe — no adoption, no LRU touch."""
+        n = 0
+        for k in keys:
+            if k not in self._block_of:
+                break
+            n += 1
+        return n
+
+    def adopt_prefix(self, rid: int, keys: Sequence[Hashable]) -> int:
+        """Start ``rid``'s table by adopting the longest cached chain of
+        ``keys``.  Returns the number of blocks adopted.  Only valid while
+        ``rid`` holds no blocks (the adopted chain must be the table head —
+        logical block ``i`` carries prefix key ``i``)."""
+        if self._tables.get(rid):
+            raise ValueError(f"request {rid} already holds blocks; a cached "
+                             "prefix can only head an empty table")
+        adopted: List[int] = []
+        for k in keys:
+            b = self._block_of.get(k)
+            if b is None:
+                break
+            adopted.append(b)
+            self._refs[b] = self._refs.get(b, 0) + 1
+            self._lru.pop(b, None)           # referenced again: off the tail
+        if adopted:
+            self._tables[rid] = adopted + self._tables.pop(rid, [])
+            self.version += 1
+        return len(adopted)
+
+    def publish_prefix(self, rid: int, keys: Sequence[Hashable]) -> int:
+        """Publish the head of ``rid``'s table under ``keys`` (one chained
+        key per full block, in logical order).  Blocks already published
+        under the same key are skipped; a key already mapping to a
+        *different* block keeps its existing mapping (the racing copy stays
+        private).  Returns the number of newly published blocks."""
+        table = self._tables.get(rid, ())
+        fresh = 0
+        for i, key in enumerate(keys):
+            if i >= len(table):
+                break
+            b = table[i]
+            if self._key_of.get(b) == key:
+                continue                     # already published (adopted)
+            if key in self._block_of or b in self._key_of:
+                continue                     # racing duplicate / re-key
+            self._block_of[key] = b
+            self._key_of[b] = key
+            fresh += 1
+        return fresh
+
+    def prepare_write(self, rid: int, block_idx: int
+                      ) -> Optional[Tuple[int, int]]:
+        """Make logical block ``block_idx`` of ``rid`` safely writable.
+
+        A block shared with other tables is copy-on-write forked: a fresh
+        block replaces it in ``rid``'s table and ``(old, new)`` is returned
+        so the caller copies the device rows before writing.  An exclusively
+        held but *published* block is unpublished in place (cheaper than a
+        fork — nobody else can be reading it).  Returns ``None`` when no
+        copy is needed.  Raises :class:`PoolExhausted` when a fork is needed
+        but the pool (including the cached tail) is empty."""
+        table = self._tables.get(rid)
+        if table is None or block_idx >= len(table):
+            return None
+        b = table[block_idx]
+        if self._refs.get(b, 0) > 1:
+            new = self._take_blocks(1)[0]
+            self._refs[b] -= 1
+            self._refs[new] = 1
+            table[block_idx] = new
+            self.cow_forks += 1
+            self.version += 1
+            return (b, new)
+        if b in self._key_of:
+            self._unpublish(b)               # exclusive: write in place
+        return None
+
+    def clear_cache(self) -> int:
+        """Drop every cached unreferenced block back to the free list.
+        Returns the number reclaimed."""
+        n = len(self._lru)
+        while self._lru:
+            self._evict_one()
+        self.cache_evictions -= n            # explicit clear, not pressure
+        return n
+
+    def table_row(self, rid: int, max_blocks: int) -> np.ndarray:
+        """Padded ``int32`` table row for the gather kernels: ``rid``'s
+        blocks in logical order, sink-padded to ``max_blocks``."""
+        table = self._tables.get(rid, ())
+        if len(table) > max_blocks:
+            raise ValueError(f"request {rid} holds {len(table)} blocks > "
+                             f"table width {max_blocks}")
+        row = np.full(max_blocks, SINK_BLOCK, np.int32)
+        row[:len(table)] = table
+        return row
+
+    # -- invariants ------------------------------------------------------------
+    def check(self) -> None:
+        """Assert the no-leak / refcount invariants (property tests call
+        this after every random op): held ∪ cached ∪ free partitions the
+        pool, and every refcount equals the number of tables holding the
+        block."""
+        counts: Dict[int, int] = {}
+        for t in self._tables.values():
+            for b in t:
+                counts[b] = counts.get(b, 0) + 1
+        assert SINK_BLOCK not in counts, "sink block was allocated"
+        assert SINK_BLOCK not in self._free, "sink block on the free list"
+        assert SINK_BLOCK not in self._lru, "sink block in the cache tail"
+        assert counts == self._refs, \
+            f"refcounts drifted from table membership: {counts} vs {self._refs}"
+        held = set(counts)
+        free = set(self._free)
+        cached = set(self._lru)
+        assert len(free) == len(self._free), "duplicate free-list entry"
+        assert not (held & free), "block both held and free"
+        assert not (held & cached), "referenced block on the cache tail"
+        assert not (free & cached), "block both free and cached"
+        assert len(held) + len(free) + len(cached) == self.total_blocks, \
+            (f"leak: {self.total_blocks - len(held) - len(free) - len(cached)}"
+             " blocks unaccounted for")
+        # prefix index is a bijection and covers exactly the blocks that
+        # carry keys; every unreferenced cached block carries a key
+        assert len(self._block_of) == len(self._key_of)
+        for key, b in self._block_of.items():
+            assert self._key_of.get(b) == key, "prefix index not a bijection"
+            assert b in held or b in cached, "published block neither held " \
+                                             "nor cached"
+        for b in cached:
+            assert b in self._key_of, "unpublished block on the cache tail"

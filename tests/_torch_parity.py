@@ -1,0 +1,56 @@
+"""Shared set-up for the parity tests of the PyTorch port against the JAX
+reference: the same small fp32 config in both packages, and the same
+parameters (drawn by the reference, bridged to the port through numpy)."""
+import dataclasses
+
+import jax
+import numpy as np
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import scale_down as jax_scale_down
+from repro.models import build_model as jax_build_model
+from repro_torch.configs import get_config, scale_down
+from repro_torch.models import build_model
+from repro_torch.params import from_numpy_params
+
+FP32 = dict(dtype="float32", param_dtype="float32")
+
+
+def configs(**over):
+    """(reference cfg, port cfg): scaled-down qwen2-1.5b in fp32."""
+    jcfg = jax_scale_down(jax_get_config("qwen2-1.5b")).replace(**FP32,
+                                                                **over)
+    tcfg = scale_down(get_config("qwen2-1.5b")).replace(**FP32, **over)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    return jcfg, tcfg
+
+
+def perturb(tree, rng):
+    """Replace the zero biases and unit norm scales by random values, so
+    the parity tests exercise them."""
+    if isinstance(tree, dict):
+        return {k: (rng.normal(0, 0.3, np.shape(v)).astype(np.float32)
+                    + (1.0 if k == "scale" else 0.0)
+                    if k in ("b", "scale") else perturb(v, rng))
+                for k, v in tree.items()}
+    return tree
+
+
+def models(seed=0, **over):
+    """Reference model + params and port model + params on the CPU, with
+    identical weights."""
+    jcfg, tcfg = configs(**over)
+    jmodel = jax_build_model(jcfg)
+    tree = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(seed)))
+    tree = perturb(tree, np.random.default_rng(seed))
+    jparams = jax.tree.map(jax.numpy.asarray, tree)
+    tmodel = build_model(tcfg, "cpu")
+    tparams = from_numpy_params(tree, tcfg, "cpu")
+    return jmodel, jparams, tmodel, tparams
+
+
+def to_np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)

@@ -10,3 +10,7 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: takes several seconds on CPU (deselect with -m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device; skips without one (run on the GPU with "
+        "-m cuda)")

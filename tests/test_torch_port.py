@@ -1,0 +1,142 @@
+"""The port as a package: it imports neither JAX nor ``repro``, its entry
+points run on CUDA unless asked for the CPU, the launcher's equality gate
+passes on the CPU, and the weight bridge carries the reference's trees."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import scale_down as jax_scale_down
+from repro.models import build_model as jax_build_model
+from repro_torch.configs import get_config, scale_down
+from repro_torch.models import build_model
+from repro_torch.params import from_numpy_params
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+SERVE = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
+         "--requests", "4", "--max-new-tokens", "4", "--s-max", "64",
+         "--check-paged-equality"]
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_importing_the_port_loads_no_jax_and_no_repro():
+    code = ("import importlib, sys\n"
+            f"for m in {list(_modules())!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+            "m.startswith('repro.'))\n"
+            "print(bad)\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], env=ENV,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_import_in_source(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_launcher_equality_gate_on_cpu():
+    out = subprocess.run(SERVE + ["--device", "cpu"], env=ENV, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "OK: paged decode == contiguous decode" in out.stdout
+
+
+def test_launcher_without_cuda_fails_loudly():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    out = subprocess.run(SERVE, env=ENV, cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+
+
+@pytest.mark.parametrize("flag", [["--replicas", "2"],
+                                  ["--spec-draft", "self"],
+                                  ["--chaos", "kill-one"], ["--autoscale"],
+                                  ["--arch", "mixtral-8x22b"]])
+def test_launcher_refuses_what_is_not_ported(flag):
+    out = subprocess.run(SERVE + ["--device", "cpu"] + flag, env=ENV,
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 2
+    assert "not yet ported" in out.stderr
+
+
+def test_build_model_defaults_to_cuda():
+    cfg = scale_down(get_config("qwen2-1.5b"))
+    if torch.cuda.is_available():
+        assert build_model(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(cfg)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        build_model(cfg.replace(family="moe"), "cpu")
+
+
+def _ref_tree(**over):
+    jcfg = jax_scale_down(jax_get_config("qwen2-1.5b")).replace(**over)
+    tree = jax.tree.map(np.asarray,
+                        jax_build_model(jcfg).init(jax.random.PRNGKey(0)))
+    return scale_down(get_config("qwen2-1.5b")).replace(**over), tree
+
+
+def test_bridge_bf16_leaves_bit_exact():
+    cfg, tree = _ref_tree()
+    leaf = tree["blocks"]["attn"]["wq"]["w"]
+    assert leaf.dtype.name == "bfloat16"
+    params = from_numpy_params(tree, cfg, "cpu")
+    got = params["blocks"]["attn"]["wq"]["w"]
+    assert got.dtype == torch.bfloat16 and got.shape == leaf.shape
+    assert np.array_equal(got.view(torch.int16).numpy(),
+                          leaf.view(np.uint16).view(np.int16))
+    as_f32 = from_numpy_params(tree, cfg, "cpu", torch.float32)
+    assert as_f32["ln_f"]["scale"].dtype == torch.float32
+
+
+def test_bridge_stacked_layers_biases_and_tied_embedding():
+    cfg, tree = _ref_tree(dtype="float32", param_dtype="float32")
+    params = from_numpy_params(tree, cfg, "cpu")
+    assert "lm_head" not in params and cfg.tie_embeddings
+    for name in ("wq", "wk", "wv"):
+        b = params["blocks"]["attn"][name]["b"]
+        assert b.shape[0] == cfg.num_layers
+    np.testing.assert_array_equal(params["blocks"]["mlp"]["down"]["w"],
+                                  tree["blocks"]["mlp"]["down"]["w"])
+    untied, tree2 = _ref_tree(dtype="float32", param_dtype="float32",
+                              tie_embeddings=False)
+    assert "lm_head" in from_numpy_params(tree2, untied, "cpu")
+    with pytest.raises(ValueError, match="needs"):
+        from_numpy_params(tree2, cfg, "cpu")
+    short = cfg.replace(num_layers=cfg.num_layers + 1)
+    with pytest.raises(ValueError, match="layers"):
+        from_numpy_params(tree, short, "cpu")
