@@ -8,19 +8,30 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
 
 1. device: CUDA present with capability (9, 0); the card's name and power
    limit from nvidia-smi; TF32 off.
-2. build: nvcc builds the flash-attention library from ``csrc/``.
-3. kernels: the hand-written kernel against its plain PyTorch version at
-   the main path's shapes (prefill and decode, bf16 and fp32, a window with
-   a bottom-right q_offset, a kv_valid = 0 row), within the stated
-   tolerances; the kernel's, the plain version's and SDPA's times (CUDA
-   events, median over launches, L2 flushed before each), and the bound.
-4. main path: full-width qwen2-1.5b (28 layers, random bf16 weights from
+2. build: nvcc builds the flash-attention and grouped-SwiGLU libraries from
+   ``csrc/``, both at once; build seconds and ptxas registers and spills.
+3. kernels: each hand-written kernel against its plain PyTorch version at
+   the main paths' shapes, within the stated tolerances; the kernel's, the
+   plain version's and the library yardstick's times (CUDA events, median
+   over launches, L2 flushed before each), and the bound.
+   - flash attention at qwen2-1.5b's heads (12/2): prefill and decode,
+     bf16 and fp32, a window with a bottom-right q_offset, a kv_valid = 0
+     row; at Mixtral-8x22B's heads (48/8): a 512-token prefill with its
+     4096 window and a decode over the 1024-slot paged view, mixed kv_valid;
+   - grouped SwiGLU at Mixtral-8x22B's widths: decode (C = 8, the load of a
+     real routing of 8 tokens), prefill at C = 512 and C = 1024 (real
+     routings, ~128 and ~256 rows per expert), an empty expert (exact
+     zeros), a small fp32 case; kernel and plain version each also against
+     the function computed in fp64 on a few rows per expert.
+4. main path 1: full-width qwen2-1.5b (28 layers, random bf16 weights from
    --seed) served by the paged ``ServingEngine``: 16 requests, prompts of
    64-1024 tokens, 32 new tokens each; every request done, the allocator's
    invariants hold, logits finite, and flash attention launched in both
-   prefill and decode.
-5. paged == contiguous: the same model generates identical tokens through
-   both KV layouts.
+   prefill and decode.  Then paged == contiguous on 4 requests.
+5. main path 2: full-width Mixtral-8x22B cut to 8 of its 56 layers (random
+   bf16 weights from --seed), served the same way: 8 requests, prompts of
+   64-512 tokens, 16 new tokens each; both kernels launched in both
+   prefill and decode.  Then paged == contiguous on 4 requests.
 
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -28,11 +39,13 @@ The line before the last is the kernels' JSON record; the last is
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -42,9 +55,15 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.device.moe_balance import (  # noqa: E402
+    gather_expert_inputs, priority_dispatch, route_topk)
 from repro_torch.kernels.flash_attention import build, ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_plain)
+from repro_torch.kernels.moe_gmm import build as gmm_build  # noqa: E402
+from repro_torch.kernels.moe_gmm import ops as gmm_ops  # noqa: E402
+from repro_torch.kernels.moe_gmm.ref import (  # noqa: E402
+    grouped_swiglu_plain)
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 
@@ -57,6 +76,12 @@ KERNEL = dict(name="flash_attention", route="cuda",
               source="src/repro_torch/kernels/flash_attention/csrc/"
                      "flash_attention.cu",
               replaces="src/repro/kernels/flash_attention/kernel.py:102")
+GMM_KERNEL = dict(name="grouped_swiglu", route="cuda",
+                  source="src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
+                  replaces="src/repro/kernels/moe_gmm/kernel.py:53")
+#: each kernel's launch counter (a plain integer on its wrapper)
+COUNTERS = {"flash_attention": ops.flash_attention,
+            "grouped_swiglu": gmm_ops.grouped_swiglu}
 
 
 def phase_device() -> str:
@@ -77,12 +102,20 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    path, seconds, log = build.build_library()
-    (path.parent / "flash_attention.build.log").write_text(log)
-    regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines()
-            if "registers" in ln]
-    print(f"build: {path.name} in {seconds} s; ptxas: {regs}")
-    build.load_library()
+    """Both libraries at once: one nvcc each, started together."""
+    libs = {"flash_attention": build.LIBRARY, "moe_gmm": gmm_build.LIBRARY}
+    with ThreadPoolExecutor(len(libs)) as pool:
+        futures = {name: pool.submit(lib.build) for name, lib in libs.items()}
+        built = {name: f.result() for name, f in futures.items()}
+    for name, (path, seconds, log) in built.items():
+        (path.parent / f"{name}.build.log").write_text(log)
+        regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines()
+                if "registers" in ln]
+        spills = [ln.strip() for ln in log.splitlines() if "spill" in ln
+                  and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+        print(f"build: {path.name} in {seconds} s; ptxas: {regs}; "
+              f"spills: {spills or 'none'}")
+        libs[name].load()
 
 
 def _time_ms(fn, reps: int = 15, warmup: int = 3) -> float:
@@ -134,23 +167,35 @@ def _bound(q, k, causal, window, q_offset, kv_valid):
 
 
 def phase_kernels(seed: int) -> list:
+    """flash_attention against its plain version at each main path's
+    shapes: qwen2-1.5b's 12/2 heads and Mixtral-8x22B's 48/8 heads (whose
+    prefill passes the 4096 window, decode the paged view of s_max 1024)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
+    qwen, mixtral = "qwen2-1.5b", "mixtral-8x22b"
     cases = [
-        # name, dtype, B, S, T, causal, window, q_offset, kv_valid
-        ("prefill", torch.bfloat16, 1, 1024, 1024, True, None, 0, None),
-        ("decode", torch.bfloat16, 8, 1, 2048, False, None, 0,
+        # path, name, dtype, B, S, T, H, Hkv, causal, window, q_offset,
+        # kv_valid
+        (qwen, "prefill", torch.bfloat16, 1, 1024, 1024, 12, 2, True, None,
+         0, None),
+        (qwen, "decode", torch.bfloat16, 8, 1, 2048, 12, 2, False, None, 0,
          [1, 2048, 7, 300, 1024, 2047, 64, 1500]),
-        ("window_q_offset", torch.bfloat16, 2, 256, 1024, True, 384, 768,
+        (qwen, "window_q_offset", torch.bfloat16, 2, 256, 1024, 12, 2, True,
+         384, 768, None),
+        (qwen, "decode_kv_valid_0", torch.bfloat16, 8, 1, 2048, 12, 2, False,
+         None, 0, [0, 2048, 7, 300, 0, 2047, 64, 1500]),
+        (qwen, "prefill", torch.float32, 1, 1024, 1024, 12, 2, True, None, 0,
          None),
-        ("decode_kv_valid_0", torch.bfloat16, 8, 1, 2048, False, None, 0,
-         [0, 2048, 7, 300, 0, 2047, 64, 1500]),
-        ("prefill", torch.float32, 1, 1024, 1024, True, None, 0, None),
-        ("decode", torch.float32, 8, 1, 2048, False, None, 0,
+        (qwen, "decode", torch.float32, 8, 1, 2048, 12, 2, False, None, 0,
          [1, 2048, 7, 300, 1024, 2047, 64, 1500]),
+        (mixtral, "mixtral_prefill", torch.bfloat16, 1, 512, 512, 48, 8,
+         True, 4096, 0, None),
+        (mixtral, "mixtral_decode", torch.bfloat16, 8, 1, 1024, 48, 8, False,
+         None, 0, [65, 1024, 130, 513, 1, 300, 700, 529]),
     ]
-    h, hkv, d = 12, 2, 128
+    d = 128
     rows = []
-    for name, dt, b, s, t, causal, window, q_offset, valid in cases:
+    for (path, name, dt, b, s, t, h, hkv, causal, window, q_offset,
+         valid) in cases:
         q = torch.randn(b, s, h, d, generator=g, device="cuda").to(dt)
         k = torch.randn(b, t, hkv, d, generator=g, device="cuda").to(dt)
         v = torch.randn(b, t, hkv, d, generator=g, device="cuda").to(dt)
@@ -179,89 +224,217 @@ def phase_kernels(seed: int) -> list:
         bound_ms, bound_by = _bound(q, k, causal, window, q_offset, kv_valid)
         ms = _time_ms(lambda: ops.flash_attention(q, k, v, kv_valid, **kw))
         rows.append(dict(
-            KERNEL, case=f"{name}/{str(dt).split('.')[1]}",
-            shape=dict(B=b, S=s, T=t, H=h, Hkv=hkv, d=d), max_abs_err=err,
-            max_err=err, tol=TOL[dt], ms=ms, kernel_ms=ms,
+            KERNEL, case=f"{name}/{str(dt).split('.')[1]}", path=path,
+            shape=dict(B=b, S=s, T=t, H=h, Hkv=hkv, d=d, window=window,
+                       q_offset=q_offset, kv_valid=valid),
+            max_abs_err=err, max_err=err, tol=TOL[dt], ms=ms, kernel_ms=ms,
             plain_ms=_time_ms(lambda: flash_attention_plain(
                 q, k, v, kv_valid, **kw)),
             library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, is_causal=mask is None,
                 scale=scale, enable_gqa=True)),
             bound_ms=bound_ms, bound_by=bound_by))
-        print(f"kernel {rows[-1]['case']}: max_err {err} (tol {TOL[dt]}), "
-              f"{ms} ms, plain {rows[-1]['plain_ms']} ms, sdpa "
-              f"{rows[-1]['library_ms']} ms, bound {bound_ms} ms "
+        print(f"kernel {rows[-1]['case']} ({path}, H={h}/{hkv}): max_err "
+              f"{err} (tol {TOL[dt]}), {ms} ms, plain {rows[-1]['plain_ms']} "
+              f"ms, sdpa {rows[-1]['library_ms']} ms, bound {bound_ms} ms "
               f"({bound_by})")
     return rows
 
 
-def _prompts(rng, n, vocab):
-    return [rng.integers(0, vocab, int(rng.integers(64, 1025)))
+def _routed(g, n, e, d, dtype):
+    """A real dropless routing of n random tokens over e experts: the
+    dispatch buffer [e, n, d] and the plan's load."""
+    x = torch.randn(n, d, generator=g, device="cuda").to(dtype)
+    router = torch.randn(d, e, generator=g, device="cuda") / d ** 0.5
+    idx, gate, probs = route_topk(x.float() @ router, 2)
+    plan = priority_dispatch(idx, gate, probs, num_experts=e, capacity=n,
+                             resteal=True)
+    return gather_expert_inputs(x, plan, 2), plan.load
+
+
+def _gmm_bound(x, f, load):
+    """Least time for this case's work: FLOPs on the kept rows and bytes of
+    the loaded experts' weights, the kept rows read and the output written."""
+    e, c, d = x.shape
+    loads = load.tolist()
+    elt = x.element_size()
+    rows = sum(loads)
+    nbytes = (sum(1 for n in loads if n > 0) * 3 * d * f + rows * d
+              + e * c * d) * elt
+    flops = 6 * rows * d * f
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[x.dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _gmm_library(x, wg, wu, wd):
+    """The yardstick: the same function composed of cuBLAS batched GEMMs on
+    the dense buffer (no single PyTorch call computes it)."""
+    h = (F.silu(torch.bmm(x, wg).float())
+         * torch.bmm(x, wu).float()).to(x.dtype)
+    return torch.bmm(h, wd)
+
+
+def _fp64_err(x, wg, wu, wd, outs, rows=8):
+    """Max error of each of ``outs`` against the function computed in fp64
+    on the first ``rows`` rows of every expert (h rounded to x's type, the
+    function's own rounding point): a yardstick independent of both."""
+    errs = [0.0] * len(outs)
+    for e in range(x.shape[0]):
+        xe = x[e, :rows].double()
+        h = (F.silu(xe @ wg[e].double()) * (xe @ wu[e].double())).to(
+            x.dtype).double()
+        y = h @ wd[e].double()
+        for i, out in enumerate(outs):
+            errs[i] = max(errs[i], (out[e, :rows].double() - y).abs().max()
+                          .item())
+        del xe, h, y
+    return errs
+
+
+def phase_gmm_kernel(seed: int) -> list:
+    """grouped_swiglu against its plain version at Mixtral-8x22B's widths
+    (E = 8, D = 6144, F = 16384) and at a small fp32 shape."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    e, d, f = 8, 6144, 16384
+
+    def weights(e, d, f, dt):
+        return [(torch.randn(s, generator=g, device="cuda") / s[1] ** 0.5
+                 ).to(dt) for s in ((e, d, f), (e, d, f), (e, f, d))]
+
+    w = weights(e, d, f, torch.bfloat16)
+    decode_x, decode_load = _routed(g, 8, e, d, torch.bfloat16)
+    empty_x, empty_load = decode_x.clone(), decode_load.clone()
+    empty_x[0], empty_load[0] = 0, 0          # expert 0 receives nothing
+    cases = [("decode", decode_x, decode_load, w),
+             ("prefill_512", *_routed(g, 512, e, d, torch.bfloat16), w),
+             ("prefill", *_routed(g, 1024, e, d, torch.bfloat16), w),
+             ("empty_expert", empty_x, empty_load, w)]
+    small_w = weights(4, 256, 512, torch.float32)
+    small_x, small_load = _routed(g, 64, 4, 256, torch.float32)
+    cases.append(("small", small_x, small_load, small_w))
+    rows = []
+    for name, x, load, (wg, wu, wd) in cases:
+        got = gmm_ops.grouped_swiglu(x, wg, wu, wd, load)
+        torch.cuda.synchronize()
+        want = grouped_swiglu_plain(x, wg, wu, wd, load)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = TOL[x.dtype]
+        if not err <= tol:
+            raise AssertionError(f"grouped_swiglu {name}: max error {err} "
+                                 f"> {tol}")
+        dead = (torch.arange(x.shape[1], device="cuda")[None, :]
+                >= load[:, None])
+        if not torch.all(got[dead] == 0):
+            raise AssertionError(f"grouped_swiglu {name}: rows beyond the "
+                                 "load are not 0")
+        if name == "empty_expert" and not torch.all(got[0] == 0):
+            raise AssertionError("grouped_swiglu: the empty expert is not 0")
+        err64, plain_err64 = _fp64_err(x, wg, wu, wd, (got, want))
+        bound_ms, bound_by = _gmm_bound(x, wg.shape[2], load)
+        ms = _time_ms(lambda: gmm_ops.grouped_swiglu(x, wg, wu, wd, load))
+        rows.append(dict(
+            GMM_KERNEL, case=f"{name}/{str(x.dtype).split('.')[1]}",
+            path="mixtral-8x22b",
+            shape=dict(E=x.shape[0], C=x.shape[1], D=x.shape[2],
+                       F=wg.shape[2], load=load.tolist()),
+            max_abs_err=err, max_err=err, tol=tol, ms=ms, kernel_ms=ms,
+            err_fp64=err64, plain_err_fp64=plain_err64,
+            bitwise_equal=bool(torch.equal(got, want)),
+            plain_ms=_time_ms(lambda: grouped_swiglu_plain(x, wg, wu, wd,
+                                                           load)),
+            library_ms=_time_ms(lambda: _gmm_library(x, wg, wu, wd)),
+            library="torch.bmm x3 (cuBLAS) + silu*mul cast",
+            bound_ms=bound_ms, bound_by=bound_by))
+        print(f"kernel grouped_swiglu {rows[-1]['case']}: max_err {err} "
+              f"(tol {tol}; against fp64: kernel {err64}, plain "
+              f"{plain_err64}; bitwise equal {rows[-1]['bitwise_equal']}), "
+              f"{ms} ms, plain {rows[-1]['plain_ms']} ms, "
+              f"bmm {rows[-1]['library_ms']} ms, bound {bound_ms} ms "
+              f"({bound_by}), load {load.tolist()}")
+    del cases, w, small_w
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _prompts(rng, n, vocab, longest=1024):
+    return [rng.integers(0, vocab, int(rng.integers(64, longest + 1)))
             for _ in range(n)]
 
 
 class _Phase:
-    """Wraps an engine call: device-synchronized seconds, calls, flash
-    launches inside it, and a finite-logits check."""
+    """Wraps an engine call: device-synchronized seconds, calls, each
+    kernel's launches inside it, and a finite-logits check."""
 
     def __init__(self, fn):
-        self.fn, self.seconds, self.calls, self.launches = fn, 0.0, 0, 0
+        self.fn, self.seconds, self.calls = fn, 0.0, 0
+        self.launches = dict.fromkeys(COUNTERS, 0)
 
     def __call__(self, *args):
-        n0, t0 = ops.flash_attention.launches, time.perf_counter()
+        n0 = {k: c.launches for k, c in COUNTERS.items()}
+        t0 = time.perf_counter()
         logits, cache = self.fn(*args)
         if not torch.isfinite(logits).all():
             raise AssertionError("non-finite logits")
         torch.cuda.synchronize()
         self.seconds += time.perf_counter() - t0
         self.calls += 1
-        self.launches += ops.flash_attention.launches - n0
+        for k, c in COUNTERS.items():
+            self.launches[k] += c.launches - n0[k]
         return logits, cache
 
 
-def phase_main_path(model, params, prompts) -> dict:
-    eng = ServingEngine(model, params, max_batch=8, s_max=2048,
+def phase_main_path(model, params, prompts, *, s_max, max_new,
+                    kernels) -> dict:
+    """Serve ``prompts`` through the paged engine; ``kernels`` must each be
+    launched in both prefill and decode."""
+    eng = ServingEngine(model, params, max_batch=8, s_max=s_max,
                         block_size=16, kv_mode="paged")
     prefill, decode = _Phase(eng._prefill), _Phase(eng._decode)
     eng._prefill, eng._decode = prefill, decode
-    reqs = [eng.submit(p, max_new_tokens=32, priority=float(i % 3))
+    reqs = [eng.submit(p, max_new_tokens=max_new, priority=float(i % 3))
             for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ops.flash_attention.launches = 0
+    for counter in COUNTERS.values():
+        counter.launches = 0
     t0 = time.perf_counter()
     outs = eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ops.flash_attention.launches
+    launches = {k: c.launches for k, c in COUNTERS.items()}
     if not all(r.state.name == "DONE" for r in reqs):
         raise AssertionError("not every request finished")
     eng.alloc.check()
-    if prefill.launches == 0 or decode.launches == 0 \
-            or launches != prefill.launches + decode.launches:
-        raise AssertionError(f"flash launches: prefill {prefill.launches}, "
-                             f"decode {decode.launches}, total {launches}")
+    for k in kernels:
+        p_n, d_n = prefill.launches[k], decode.launches[k]
+        if p_n == 0 or d_n == 0 or launches[k] != p_n + d_n:
+            raise AssertionError(f"{k} launches: prefill {p_n}, decode "
+                                 f"{d_n}, total {launches[k]}")
     tokens = sum(len(outs[r.rid]) for r in reqs)
-    if tokens != 32 * len(reqs):
+    if tokens != max_new * len(reqs):
         raise AssertionError(f"{tokens} tokens for {len(reqs)} requests")
-    stats = dict(requests=len(reqs), tokens=tokens, wall_s=wall,
+    stats = dict(arch=model.cfg.name, layers=model.cfg.num_layers,
+                 requests=len(reqs), tokens=tokens, wall_s=wall,
                  tokens_per_s=tokens / wall, prefill_s=prefill.seconds,
                  prefill_calls=prefill.calls,
                  decode_steps=decode.calls,
                  decode_step_ms=decode.seconds / decode.calls * 1e3,
-                 flash_launches=launches,
-                 flash_launches_prefill=prefill.launches,
-                 flash_launches_decode=decode.launches,
+                 launches=launches,
+                 launches_prefill=prefill.launches,
+                 launches_decode=decode.launches,
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                  prompt_tokens=int(sum(len(p) for p in prompts)))
     print("main path: " + json.dumps(stats))
     return stats
 
 
-def phase_paged_equals_contiguous(model, params, prompts) -> None:
+def phase_paged_equals_contiguous(model, params, prompts, s_max) -> None:
     results = {}
     for mode in ("contiguous", "paged"):
-        eng = ServingEngine(model, params, max_batch=8, s_max=2048,
+        eng = ServingEngine(model, params, max_batch=8, s_max=s_max,
                             block_size=16, kv_mode=mode)
         reqs = [eng.submit(p, max_new_tokens=16, priority=float(i % 3))
                 for i, p in enumerate(prompts)]
@@ -270,9 +443,26 @@ def phase_paged_equals_contiguous(model, params, prompts) -> None:
             raise AssertionError(f"{mode}: not every request finished")
         results[mode] = [outs[r.rid] for r in reqs]
     if results["paged"] != results["contiguous"]:
-        raise AssertionError("paged and contiguous tokens differ")
-    print(f"paged == contiguous: {len(prompts)} requests, "
+        raise AssertionError(f"{model.cfg.name}: paged and contiguous "
+                             "tokens differ")
+    print(f"paged == contiguous ({model.cfg.name}): {len(prompts)} requests, "
           f"{sum(map(len, results['paged']))} identical tokens")
+
+
+def _init(cfg, seed):
+    model = build_model(cfg, "cuda")
+    t0 = time.perf_counter()
+    params = model.init(seed)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    print(f"model: {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
+          f"heads={cfg.num_heads}/{cfg.num_kv_heads} hd={cfg.head_dim} "
+          f"d_ff={cfg.d_ff} experts={cfg.num_experts}/"
+          f"{cfg.num_experts_per_tok} window={cfg.sliding_window} "
+          f"vocab={cfg.vocab_size} {cfg.dtype}, {n_params} params, init "
+          f"{time.perf_counter() - t0} s, allocated "
+          f"{torch.cuda.memory_allocated() / 1e9} GB")
+    return model, params
 
 
 def main() -> int:
@@ -281,23 +471,36 @@ def main() -> int:
     args = ap.parse_args()
     smi = phase_device()
     phase_build()
-    rows = phase_kernels(args.seed)
+    flash_rows = phase_kernels(args.seed)
+    gmm_rows = phase_gmm_kernel(args.seed)
+    rng = np.random.default_rng(args.seed)
+
+    # main path 1: qwen2-1.5b at full depth
     cfg = get_config("qwen2-1.5b").replace(use_flash=True)
-    model = build_model(cfg, "cuda")
-    t0 = time.perf_counter()
-    params = model.init(args.seed)
-    torch.cuda.synchronize()
-    n_params = sum(x.numel() for x in _leaves(params))
-    print(f"model: {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
-          f"heads={cfg.num_heads}/{cfg.num_kv_heads} hd={cfg.head_dim} "
-          f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} {cfg.dtype}, {n_params} "
-          f"params, init {time.perf_counter() - t0} s")
-    prompts = _prompts(np.random.default_rng(args.seed), 16, cfg.vocab_size)
-    stats = phase_main_path(model, params, prompts)
-    for row in rows:
-        row["launches"] = stats["flash_launches"]
-    phase_paged_equals_contiguous(model, params, prompts[:4])
-    print(json.dumps({"kernels": rows}))
+    model, params = _init(cfg, args.seed)
+    prompts = _prompts(rng, 16, cfg.vocab_size)
+    qwen = phase_main_path(model, params, prompts, s_max=2048, max_new=32,
+                           kernels=["flash_attention"])
+    phase_paged_equals_contiguous(model, params, prompts[:4], 2048)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # main path 2: Mixtral-8x22B at full width, 8 of its 56 layers
+    cfg = get_config("mixtral-8x22b").replace(num_layers=8, use_flash=True)
+    model, params = _init(cfg, args.seed)
+    prompts = _prompts(rng, 8, cfg.vocab_size, longest=512)
+    mixtral = phase_main_path(model, params, prompts, s_max=1024,
+                              max_new=16,
+                              kernels=["flash_attention", "grouped_swiglu"])
+    phase_paged_equals_contiguous(model, params, prompts[:4], 1024)
+
+    # each row carries its kernel's launches on the main path it was sized
+    # for (the fp32 and synthetic-mask rows: the path whose heads they use)
+    by_path = {p["arch"]: p["launches"] for p in (qwen, mixtral)}
+    for row in flash_rows + gmm_rows:
+        row["launches"] = by_path[row["path"]][row["name"]]
+    print(json.dumps({"kernels": flash_rows + gmm_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -80,8 +80,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
     _check_cuda(q, k, v, kv_valid)
-    from .build import load_library
-    lib = load_library()
+    from .build import LIBRARY
+    lib = LIBRARY.load()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.flash_attention_fwd(

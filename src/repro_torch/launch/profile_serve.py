@@ -1,10 +1,15 @@
 """Where the serving path's time goes on the card: ``torch.profiler`` over
 (a) a window of decode steps of the paged engine with every slot busy and
-(b) whole-prompt prefills, for full-width qwen2-1.5b with random weights at
-the serving shape of ``chip_smoke.py``'s main path.
+(b) whole-prompt prefills, for a full-width model with random weights at
+the serving shape of ``chip_smoke.py``'s main paths.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --out build/profile.json
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch mixtral-8x22b --layers 8 --out build/profile_mixtral.json
+
+``--layers`` cuts the depth (the widths stay as published): full
+Mixtral-8x22B needs ~281 GB, so one card holds 8 of its 56 layers.
 
 Prints one JSON object with, per window: host wall time (taken without the
 profiler, on the same calls just before), device busy time (the sum of
@@ -83,6 +88,10 @@ def _window(fn, units: int) -> tuple[dict, profile]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen2-1.5b")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (default: the "
+                         "config's own)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write the JSON and a Chrome trace of the "
@@ -90,7 +99,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     device = resolve_device("cuda")
-    cfg = get_config("qwen2-1.5b").replace(use_flash=True)
+    cfg = get_config(args.arch).replace(use_flash=True)
+    if args.layers is not None:
+        cfg = cfg.replace(num_layers=args.layers)
     model = build_model(cfg, device)
     params = model.init(args.seed)
     rng = np.random.default_rng(args.seed)
@@ -116,6 +127,7 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout
     out = {"device": card.splitlines()[0].strip(), "arch": cfg.name,
+           "layers": cfg.num_layers,
            "max_batch": MAX_BATCH, "s_max": S_MAX, "decode_step": decode,
            "prefill": dict(prefill, prompt_len=PROMPT_LEN)}
     print(json.dumps(out))

@@ -11,6 +11,10 @@ Equality gate (paged and contiguous KV must generate identical tokens):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --smoke --requests 8 --check-paged-equality
 
+``--arch mixtral-8x22b`` serves the MoE family (grouped-SwiGLU kernel);
+full Mixtral-8x22B does not fit one card, so on the GPU run it with
+``--smoke`` (``chip_smoke.py`` serves it at full width, 8 layers).
+
 The flags are those of ``repro.launch.serve`` plus ``--device``;
 ``--replicas > 1``, ``--spec-draft``, ``--chaos`` and ``--autoscale`` are
 not yet ported and exit 2.

@@ -1,5 +1,5 @@
 """Uniform model interface (``Model``, ``build_model``) for the ported
-families: ``dense`` only so far.
+families: ``dense`` and ``moe`` (one trunk, as in the reference).
 
 The PyTorch counterpart of ``repro/models/model_zoo.py``.  A ``Model`` is
 bound to a device; ``init(seed)`` draws its parameters there.
@@ -45,7 +45,7 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
     """``device`` None means CUDA (raises without a CUDA device); pass
     ``"cpu"`` to run on the CPU."""
     dev = resolve_device(device)
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not yet ported "
                                   "to repro_torch")
     return Model(

@@ -1,10 +1,10 @@
-"""Decoder-only dense transformer trunk (the ``dense`` family).
+"""Decoder-only transformer trunk (the ``dense`` and ``moe`` families).
 
 The PyTorch counterpart of ``repro/models/transformer.py``.  Parameters keep
 the reference's layer-stacked ``[L, ...]`` leaves; the reference's
 ``lax.scan`` over layers is a Python loop that takes layer ``l``'s views.
-KV caches are written in place (see ``attention``).  MoE, VLM and
-speculative verification are not yet ported.
+KV caches are written in place (see ``attention``).  VLM and speculative
+verification are not yet ported.
 """
 from __future__ import annotations
 
@@ -19,24 +19,62 @@ from .attention import (KVCache, PagedKVCache, attention_decode,
                         init_kv_cache, init_paged_kv_cache)
 from .layers import (dtype_of, embed, init_embedding, init_linear, init_mlp,
                      init_rms_norm, linear, mlp, rms_norm)
+from .moe import init_moe, moe_fwd
 
 __all__ = ["init_lm", "lm_prefill", "lm_decode_step", "init_lm_cache",
            "init_lm_paged_cache", "lm_decode_step_paged",
            "lm_prefill_chunk_paged", "lm_insert_prefill_paged"]
 
 
+def _is_moe(cfg: ModelConfig) -> bool:
+    return cfg.num_experts > 0
+
+
 def _init_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
     dt = dtype_of(cfg)
-    return {"ln1": init_rms_norm(cfg.d_model, dt, gen.device),
-            "attn": init_attention(gen, cfg, dt),
-            "ln2": init_rms_norm(cfg.d_model, dt, gen.device),
-            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dt)}
+    p = {"ln1": init_rms_norm(cfg.d_model, dt, gen.device),
+         "attn": init_attention(gen, cfg, dt),
+         "ln2": init_rms_norm(cfg.d_model, dt, gen.device)}
+    if _is_moe(cfg):
+        p["moe"] = init_moe(gen, cfg, dt)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dt)
+    return p
 
 
-def _stack(trees: list) -> dict:
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _ffn(p: dict, z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The block's feed-forward: the MoE layer (grouped-SwiGLU kernel under
+    ``use_flash``, as in the reference) or the dense MLP."""
+    if _is_moe(cfg):
+        return moe_fwd(p["moe"], z, cfg, use_kernel=cfg.use_flash)[0]
+    return mlp(p["mlp"], z)
+
+
+def _stacked_blocks(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """Every block's tree with ``[L, ...]`` leaves.  Each leaf is allocated
+    once and filled layer by layer, so the weights are never held twice:
+    the peak is the stack plus one layer's tree."""
+    def empty(tree):
+        if isinstance(tree, dict):
+            return {k: empty(v) for k, v in tree.items()}
+        return torch.empty((cfg.num_layers,) + tuple(tree.shape),
+                           dtype=tree.dtype, device=tree.device)
+
+    def fill(dst, src, i):
+        if isinstance(dst, dict):
+            for k in dst:
+                fill(dst[k], src[k], i)
+        else:
+            dst[i].copy_(src)
+
+    blocks = None
+    for i in range(cfg.num_layers):
+        layer = _init_block(gen, cfg)
+        if blocks is None:
+            blocks = empty(layer)
+        fill(blocks, layer, i)
+        del layer
+    return blocks
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -49,14 +87,13 @@ def _layer(tree: dict, i: int) -> dict:
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Random parameters on ``gen.device`` with the reference's tree,
     layouts and distributions (not its numbers: the generators differ)."""
-    if cfg.num_experts or cfg.vision_embed_dim:
-        raise NotImplementedError(f"{cfg.name}: MoE and VLM trunks are not "
-                                  "yet ported")
+    if cfg.vision_embed_dim:
+        raise NotImplementedError(f"{cfg.name}: the VLM trunk is not yet "
+                                  "ported")
     dt = dtype_of(cfg)
     params = {
         "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dt),
-        "blocks": _stack([_init_block(gen, cfg)
-                          for _ in range(cfg.num_layers)]),
+        "blocks": _stacked_blocks(gen, cfg),
         "ln_f": init_rms_norm(cfg.d_model, dt, gen.device),
     }
     if not cfg.tie_embeddings:
@@ -72,14 +109,14 @@ def _block_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig, positions, mask):
                                  positions, mask, use_flash=cfg.use_flash,
                                  return_kv=True)
     h = x + attn_out
-    return h + mlp(p["mlp"], rms_norm(p["ln2"], h, cfg.norm_eps)), kv
+    return h + _ffn(p, rms_norm(p["ln2"], h, cfg.norm_eps), cfg), kv
 
 
 def _block_decode(p: dict, x: torch.Tensor, cache: KVCache, pos, cfg):
     y_attn, new_cache = attention_decode(
         p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), cache, pos, cfg)
     h = x + y_attn
-    return h + mlp(p["mlp"], rms_norm(p["ln2"], h, cfg.norm_eps)), new_cache
+    return h + _ffn(p, rms_norm(p["ln2"], h, cfg.norm_eps), cfg), new_cache
 
 
 def _unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -162,7 +199,7 @@ def lm_decode_step_paged(params: dict, token: torch.Tensor,
             p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps),
             PagedKVCache(cache.k[i], cache.v[i]), table, pos, cfg)
         h = x + y_attn
-        x = h + mlp(p["mlp"], rms_norm(p["ln2"], h, cfg.norm_eps))
+        x = h + _ffn(p, rms_norm(p["ln2"], h, cfg.norm_eps), cfg)
     x = rms_norm(params["ln_f"], x, cfg.norm_eps)
     return _unembed(params, x, cfg), cache
 
@@ -179,7 +216,7 @@ def lm_prefill_chunk_paged(params: dict, batch: dict, cache: PagedKVCache,
             p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps),
             PagedKVCache(cache.k[i], cache.v[i]), table_row, start, cfg)
         h = x + attn
-        x = h + mlp(p["mlp"], rms_norm(p["ln2"], h, cfg.norm_eps))
+        x = h + _ffn(p, rms_norm(p["ln2"], h, cfg.norm_eps), cfg)
     x = rms_norm(params["ln_f"], x, cfg.norm_eps)
     return _unembed(params, x[:, -1:], cfg), cache
 

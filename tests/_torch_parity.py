@@ -1,6 +1,7 @@
 """Shared set-up for the parity tests of the PyTorch port against the JAX
-reference: the same small fp32 config in both packages, and the same
-parameters (drawn by the reference, bridged to the port through numpy)."""
+reference: the same small fp32 config of an architecture in both packages,
+and the same parameters (drawn by the reference, bridged to the port
+through numpy)."""
 import dataclasses
 
 import jax
@@ -17,11 +18,10 @@ from repro_torch.params import from_numpy_params
 FP32 = dict(dtype="float32", param_dtype="float32")
 
 
-def configs(**over):
-    """(reference cfg, port cfg): scaled-down qwen2-1.5b in fp32."""
-    jcfg = jax_scale_down(jax_get_config("qwen2-1.5b")).replace(**FP32,
-                                                                **over)
-    tcfg = scale_down(get_config("qwen2-1.5b")).replace(**FP32, **over)
+def configs(arch="qwen2-1.5b", **over):
+    """(reference cfg, port cfg): scaled-down ``arch`` in fp32."""
+    jcfg = jax_scale_down(jax_get_config(arch)).replace(**FP32, **over)
+    tcfg = scale_down(get_config(arch)).replace(**FP32, **over)
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
     return jcfg, tcfg
 
@@ -37,10 +37,10 @@ def perturb(tree, rng):
     return tree
 
 
-def models(seed=0, **over):
+def models(seed=0, arch="qwen2-1.5b", **over):
     """Reference model + params and port model + params on the CPU, with
     identical weights."""
-    jcfg, tcfg = configs(**over)
+    jcfg, tcfg = configs(arch, **over)
     jmodel = jax_build_model(jcfg)
     tree = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(seed)))
     tree = perturb(tree, np.random.default_rng(seed))

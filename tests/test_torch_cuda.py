@@ -10,6 +10,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+from repro_torch.kernels.moe_gmm import ops as gmm_ops
+from repro_torch.kernels.moe_gmm.ref import grouped_swiglu_plain
 
 
 def _inputs(b, s, t, h, hkv, d, seed=1):
@@ -27,6 +29,11 @@ def _inputs(b, s, t, h, hkv, d, seed=1):
     (8, 1, 512, 12, 2, 128, False, None, 0, [1, 512, 5, 100, 0, 511, 64, 65]),
     (2, 40, 100, 4, 2, 32, True, 48, 60, None),
     (1, 100, 100, 4, 4, 64, False, None, 0, None),
+    # Mixtral-8x22B's heads: prefill with its window, decode over the paged
+    # view of s_max 1024
+    (1, 512, 512, 48, 8, 128, True, 4096, 0, None),
+    (8, 1, 1024, 48, 8, 128, False, None, 0,
+     [65, 1024, 130, 513, 1, 300, 700, 529]),
 ])
 def test_kernel_matches_plain_on_card(b, s, t, h, hkv, d, causal, window,
                                       q_offset, kv_valid, dtype, tol):
@@ -44,3 +51,41 @@ def test_kernel_matches_plain_on_card(b, s, t, h, hkv, d, causal, window,
     assert ops.flash_attention.launches == before + 1
     want = flash_attention_plain(q, k, v, valid, **kw)
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("e,c,d,f,load", [
+    (4, 64, 32, 64, None),
+    (2, 100, 16, 48, [100, 37]),
+    (8, 8, 128, 256, [2, 0, 1, 8, 3, 0, 2, 0]),
+    (8, 8, 6144, 16384, [2, 3, 1, 2, 4, 1, 2, 1]),     # Mixtral decode
+    (8, 300, 6144, 16384, [256, 300, 0, 200, 1, 64, 65, 257]),
+    (8, 512, 6144, 16384, [131, 120, 128, 140, 117, 126, 133, 129]),
+])
+def test_grouped_swiglu_matches_plain_on_card(e, c, d, f, load, dtype, tol):
+    """Rows beyond each expert's load are zero, as dispatch leaves them; the
+    kernel skips them and must still write them as zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(e * c + d)
+    x = torch.randn(e, c, d, generator=g, device="cuda").to(dt)
+    w = [(torch.randn(shape, generator=g, device="cuda") / shape[1] ** 0.5
+          ).to(dt) for shape in ((e, d, f), (e, d, f), (e, f, d))]
+    ld = None
+    if load is not None:
+        ld = torch.tensor(load, dtype=torch.int32, device="cuda")
+        x[torch.arange(c, device="cuda")[None, :] >= ld[:, None]] = 0
+    before = gmm_ops.grouped_swiglu.launches
+    y = gmm_ops.grouped_swiglu(x, *w, ld)
+    torch.cuda.synchronize()
+    assert gmm_ops.grouped_swiglu.launches == before + 1
+    want = grouped_swiglu_plain(x, *w)
+    assert torch.isfinite(y).all()
+    assert (y.float() - want.float()).abs().max().item() <= tol
+    if ld is not None:
+        dead = torch.arange(c, device="cuda")[None, :] >= ld[:, None]
+        assert torch.all(y[dead] == 0)
+        assert torch.equal(y, gmm_ops.grouped_swiglu(x, *w))

@@ -1,10 +1,12 @@
 """The port's serving engine and scheduler copy against the reference's: the
 same prompts, priorities and injected clock give the same tokens per
-request in every KV mode, and the same batch plans."""
+request in every KV mode, dense and MoE, and the same batch plans; the MoE
+model's paged decode is bit-identical to its contiguous decode."""
 import itertools
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core.device import request_scheduler as jrs
 from repro.serving import ServingEngine as JaxEngine
@@ -24,6 +26,12 @@ MODES = {
 @pytest.fixture(scope="module")
 def bridged():
     return models(seed=7)
+
+
+@pytest.fixture(scope="module")
+def bridged_moe():
+    """Scaled mixtral-8x22b: 4 experts, top-2, sliding window 64."""
+    return models(seed=7, arch="mixtral-8x22b")
 
 
 def _prompts(vocab, n=6, seed=0):
@@ -67,6 +75,62 @@ def test_engine_tokens_match_reference(bridged, mode):
     if mode == "paged+cache":
         assert teng.cache_stats == jeng.cache_stats
         assert teng.cache_stats["hit_tokens"] > 0
+
+
+def _long_prompts(vocab, n=4, seed=1):
+    """Prompts past the scaled window (64), half with a shared prefix."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, 16)
+    out = []
+    for i in range(n):
+        tail = rng.integers(0, vocab, int(rng.integers(50, 80)))
+        out.append(np.concatenate([prefix, tail]) if i % 2 == 0 else tail)
+    return out
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_moe_engine_tokens_match_reference(bridged_moe, mode):
+    jmodel, jp, tmodel, tp = bridged_moe
+    prompts = _long_prompts(jmodel.cfg.vocab_size)
+    assert max(map(len, prompts)) > jmodel.cfg.sliding_window
+    kw = dict(max_batch=3, s_max=128, block_size=8, **MODES[mode])
+    passes = 2 if mode == "paged+cache" else 1
+    want, jeng = _serve(JaxEngine(jmodel, jp, **kw), prompts, passes)
+    got, teng = _serve(TorchEngine(tmodel, tp, **kw), prompts, passes)
+    assert got == want
+    assert teng.batcher.metrics == jeng.batcher.metrics
+    if mode == "paged+cache":
+        assert teng.cache_stats == jeng.cache_stats
+
+
+def test_moe_paged_decode_bit_identical_to_contiguous(bridged_moe):
+    """Two prompts (one past the window) prefilled, then decoded in one
+    batch through the contiguous cache and through the pool: the logits
+    are equal bit for bit at every step."""
+    _, _, model, params = bridged_moe
+    vocab, cap, bs = model.cfg.vocab_size, model.cfg.sliding_window, 8
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, vocab, (1, n)) for n in (75, 9)]
+    dense = model.init_cache(2, cap)
+    pool = model.init_paged_cache(2, 2 * cap // bs + 1, bs)
+    table = torch.arange(1, 2 * cap // bs + 1, dtype=torch.int32).reshape(
+        2, -1)
+    toks = []
+    for i, p in enumerate(prompts):
+        logits, one = model.prefill(params, {"tokens": torch.from_numpy(p)},
+                                    cap)
+        dense.k[:, i] = one.k[:, 0]
+        dense.v[:, i] = one.v[:, 0]
+        pool = model.insert_prefill_paged(pool, one, table[i], i)
+        toks.append(int(torch.argmax(logits[0, -1])))
+    tok = torch.tensor(toks)[:, None]
+    pos = torch.tensor([p.shape[1] for p in prompts])
+    for _ in range(6):
+        want, dense = model.decode_step(params, tok, dense, pos)
+        got, pool = model.decode_step_paged(params, tok, pool, table, pos)
+        assert torch.equal(got, want)
+        tok = torch.argmax(got[:, -1], dim=-1)[:, None]
+        pos = pos + 1
 
 
 def _steal_and_serve(engine_cls, model, params, prompts):

@@ -27,11 +27,23 @@ SERVE = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
          "--check-paged-equality"]
 
 
+#: modules that must be among those scanned (the MoE slice's)
+REQUIRED = ("repro_torch.core.device.moe_balance", "repro_torch.models.moe",
+            "repro_torch.kernels._build", "repro_torch.kernels.moe_gmm",
+            "repro_torch.kernels.moe_gmm.ops",
+            "repro_torch.kernels.moe_gmm.ref",
+            "repro_torch.kernels.moe_gmm.build")
+
+
 def _modules():
     for path in sorted(PKG.rglob("*.py")):
         rel = path.relative_to(PKG.parent).with_suffix("")
         parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
         yield ".".join(parts)
+
+
+def test_hygiene_scans_cover_the_moe_slice():
+    assert set(REQUIRED) <= set(_modules())
 
 
 def test_importing_the_port_loads_no_jax_and_no_repro():
@@ -71,6 +83,16 @@ def test_launcher_equality_gate_on_cpu():
     assert "OK: paged decode == contiguous decode" in out.stdout
 
 
+def test_launcher_equality_gate_on_cpu_moe():
+    """Scaled mixtral-8x22b (4 experts, window 64) through all four modes."""
+    out = subprocess.run(SERVE + ["--device", "cpu", "--arch",
+                                  "mixtral-8x22b"], env=ENV, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "OK: paged decode == contiguous decode" in out.stdout
+    assert "token-exact: True" in out.stdout
+
+
 def test_launcher_without_cuda_fails_loudly():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
@@ -83,7 +105,7 @@ def test_launcher_without_cuda_fails_loudly():
 @pytest.mark.parametrize("flag", [["--replicas", "2"],
                                   ["--spec-draft", "self"],
                                   ["--chaos", "kill-one"], ["--autoscale"],
-                                  ["--arch", "mixtral-8x22b"]])
+                                  ["--arch", "rwkv6-3b"]])
 def test_launcher_refuses_what_is_not_ported(flag):
     out = subprocess.run(SERVE + ["--device", "cpu"] + flag, env=ENV,
                          cwd=ROOT, capture_output=True, text=True,
@@ -100,14 +122,14 @@ def test_build_model_defaults_to_cuda():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_model(cfg)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_model(cfg.replace(family="moe"), "cpu")
+        build_model(cfg.replace(family="ssm"), "cpu")
 
 
-def _ref_tree(**over):
-    jcfg = jax_scale_down(jax_get_config("qwen2-1.5b")).replace(**over)
+def _ref_tree(arch="qwen2-1.5b", **over):
+    jcfg = jax_scale_down(jax_get_config(arch)).replace(**over)
     tree = jax.tree.map(np.asarray,
                         jax_build_model(jcfg).init(jax.random.PRNGKey(0)))
-    return scale_down(get_config("qwen2-1.5b")).replace(**over), tree
+    return scale_down(get_config(arch)).replace(**over), tree
 
 
 def test_bridge_bf16_leaves_bit_exact():
@@ -140,3 +162,27 @@ def test_bridge_stacked_layers_biases_and_tied_embedding():
     short = cfg.replace(num_layers=cfg.num_layers + 1)
     with pytest.raises(ValueError, match="layers"):
         from_numpy_params(tree, short, "cpu")
+
+
+def test_bridge_moe_tree():
+    """Stacked [L, E, ...] expert leaves bit-exact in bf16; the router
+    stays fp32, also under a ``dtype`` cast."""
+    cfg, tree = _ref_tree("mixtral-8x22b")
+    moe = tree["blocks"]["moe"]
+    assert "mlp" not in tree["blocks"]
+    params = from_numpy_params(tree, cfg, "cpu")
+    got = params["blocks"]["moe"]
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.resolved_moe_d_ff
+    for name, shape in (("w_gate", (e, d, f)), ("w_up", (e, d, f)),
+                        ("w_down", (e, f, d))):
+        assert got[name].shape == (cfg.num_layers,) + shape
+        assert got[name].dtype == torch.bfloat16
+        assert np.array_equal(got[name].view(torch.int16).numpy(),
+                              moe[name].view(np.uint16).view(np.int16))
+    router = got["router"]["w"]
+    assert router.dtype == torch.float32
+    assert router.shape == (cfg.num_layers, d, e)
+    np.testing.assert_array_equal(router.numpy(), moe["router"]["w"])
+    cast = from_numpy_params(tree, cfg, "cpu", torch.bfloat16)
+    assert cast["blocks"]["moe"]["router"]["w"].dtype == torch.float32
+    assert cast["blocks"]["attn"]["wq"]["w"].dtype == torch.bfloat16
