@@ -8,8 +8,9 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
 
 1. device: CUDA present with capability (9, 0); the card's name and power
    limit from nvidia-smi; TF32 off.
-2. build: nvcc builds the flash-attention and grouped-SwiGLU libraries from
-   ``csrc/``, both at once; build seconds and ptxas registers and spills.
+2. build: nvcc builds the flash-attention, grouped-SwiGLU, WKV-6 and
+   prefix-scan libraries from ``csrc/``, all at once; build seconds and
+   ptxas registers and spills.
 3. kernels: each hand-written kernel against its plain PyTorch version at
    the main paths' shapes, within the stated tolerances; the kernel's, the
    plain version's and the library yardstick's times (CUDA events, median
@@ -22,7 +23,14 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      real routing of 8 tokens), prefill at C = 512 and C = 1024 (real
      routings, ~128 and ~256 rows per expert), an empty expert (exact
      zeros), a small fp32 case; kernel and plain version each also against
-     the function computed in fp64 on a few rows per expert.
+     the function computed in fp64 on a few rows per expert;
+   - WKV-6 at rwkv6-3b's heads (H = 40, N = 64): the bf16 prefill at
+     T = 1024, a ragged T = 77 with a non-zero s0, fp32 at B = 2, T = 256;
+     kernel and plain version each also against the recurrence in fp64 on
+     a few heads;
+   - the prefix scan: kernel_bench's (4, 1024) and (8, 8192), R = N = 4096
+     in fp32, int32 (exact) and bf16, and one row of 2^24 (the case one
+     block per row serves worst); torch.cumsum as the yardstick.
 4. main path 1: full-width qwen2-1.5b (28 layers, random bf16 weights from
    --seed) served by the paged ``ServingEngine``: 16 requests, prompts of
    64-1024 tokens, 32 new tokens each; every request done, the allocator's
@@ -32,6 +40,24 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    bf16 weights from --seed), served the same way: 8 requests, prompts of
    64-512 tokens, 16 new tokens each; both kernels launched in both
    prefill and decode.  Then paged == contiguous on 4 requests.
+6. main path 3: full rwkv6-3b (32 layers, random bf16 weights from --seed)
+   served by the contiguous ``ServingEngine`` (the family has no paged
+   path): 8 requests, prompts of 64-1024 tokens, 32 new tokens each; WKV-6
+   launched once a layer in every prefill and never in decode (decode is
+   the plain recurrence, as in the reference).  Then, in place of paged ==
+   contiguous: the state hand-off (prefill(p + [t]) against prefill(p) then
+   decode_step(t), in bf16 within the reference's bound of 0.25 on the
+   logits) and the kernel route against the chunked scan (in fp32 within
+   1e-3; in bf16 each route as far from the fp32 logits as the other), on
+   4 prompts.
+
+7. the prefix scan's own path (it is on no serving path: the reference
+   runs it from its benchmarks and tests only): its public wrapper driven
+   at the inputs the reference's benchmarks give it, each held against
+   its plain version.
+
+Every kernel launch of a path is counted by its wrapper, with the counts
+set to 0 just before the path and read just after.
 
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -64,6 +90,13 @@ from repro_torch.kernels.moe_gmm import build as gmm_build  # noqa: E402
 from repro_torch.kernels.moe_gmm import ops as gmm_ops  # noqa: E402
 from repro_torch.kernels.moe_gmm.ref import (  # noqa: E402
     grouped_swiglu_plain)
+from repro_torch.kernels.prefix_scan import build as scan_build  # noqa: E402
+from repro_torch.kernels.prefix_scan import ops as scan_ops  # noqa: E402
+from repro_torch.kernels.prefix_scan.ref import (  # noqa: E402
+    acc_dtype, prefix_scan_plain)
+from repro_torch.kernels.wkv6 import build as wkv_build  # noqa: E402
+from repro_torch.kernels.wkv6 import ops as wkv_ops  # noqa: E402
+from repro_torch.kernels.wkv6.ref import wkv6_plain  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 
@@ -79,9 +112,26 @@ KERNEL = dict(name="flash_attention", route="cuda",
 GMM_KERNEL = dict(name="grouped_swiglu", route="cuda",
                   source="src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
                   replaces="src/repro/kernels/moe_gmm/kernel.py:53")
+WKV_KERNEL = dict(name="wkv6", route="cuda",
+                  source="src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+                  replaces="src/repro/kernels/wkv6/kernel.py:67")
+SCAN_KERNEL = dict(name="prefix_scan", route="cuda",
+                   source="src/repro_torch/kernels/prefix_scan/csrc/"
+                          "prefix_scan.cu",
+                   replaces="src/repro/kernels/prefix_scan/kernel.py:46")
 #: each kernel's launch counter (a plain integer on its wrapper)
 COUNTERS = {"flash_attention": ops.flash_attention,
-            "grouped_swiglu": gmm_ops.grouped_swiglu}
+            "grouped_swiglu": gmm_ops.grouped_swiglu,
+            "wkv6": wkv_ops.wkv6,
+            "prefix_scan": scan_ops.prefix_scan}
+#: max |logit| difference the reference allows its bf16 path between two
+#: computations of the same logits (tests/test_models.py)
+BF16_LOGIT_TOL = 0.25
+#: the prefix scan's own path: no serving path runs it
+SCAN_PATH = "prefix-scan benchmarks"
+#: the WKV routes (kernel and chunked scan) in fp32 at full depth: the same
+#: fp32 products summed in other orders, ~1e-4 apart
+ROUTE_TOL_FP32 = 1e-3
 
 
 def phase_device() -> str:
@@ -102,8 +152,9 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    """Both libraries at once: one nvcc each, started together."""
-    libs = {"flash_attention": build.LIBRARY, "moe_gmm": gmm_build.LIBRARY}
+    """Every library at once: one nvcc each, started together."""
+    libs = {"flash_attention": build.LIBRARY, "moe_gmm": gmm_build.LIBRARY,
+            "wkv6": wkv_build.LIBRARY, "prefix_scan": scan_build.LIBRARY}
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(lib.build) for name, lib in libs.items()}
         built = {name: f.result() for name, f in futures.items()}
@@ -359,6 +410,189 @@ def phase_gmm_kernel(seed: int) -> list:
     return rows
 
 
+def _wkv_fp64(r, k, v, w, u, s0, heads):
+    """The recurrence in fp64 for batch row 0 and ``heads``: (y, s_end)."""
+    sl = (0, slice(None), heads)
+    rd, kd, vd, wd = (a[sl].double() for a in (r, k, v, w))   # [T, h, N]
+    ud = u[heads].double()
+    s = s0[0, heads].double().clone()                         # [h, N, N]
+    ys = torch.empty_like(rd)
+    for t in range(rd.shape[0]):
+        ys[t] = (torch.einsum("hk,hkv->hv", rd[t], s)
+                 + (rd[t] * ud * kd[t]).sum(-1, keepdim=True) * vd[t])
+        s = wd[t][..., None] * s + kd[t][..., None] * vd[t][:, None, :]
+    return ys, s
+
+
+def _within(got, want, rtol, atol=1e-4):
+    """Elementwise |got - want| <= rtol |want| + atol."""
+    return bool(torch.all((got.float() - want.float()).abs()
+                          <= rtol * want.float().abs() + atol))
+
+
+def phase_wkv6_kernel(seed: int) -> list:
+    """wkv6 against its plain version at rwkv6-3b's heads (H = 40,
+    N = 64).  Tolerances: y within one ulp of its type relative to the
+    plain version's y (2^-7 relative for bf16, whose rounding point may fall
+    either side of the two fp32 sums; 1e-4 for fp32), s_end (fp32) within
+    1e-4 relative; each with 1e-4 absolute."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    h, n = 40, 64
+    cases = [("prefill", torch.bfloat16, 1, 1024, False),
+             ("ragged_s0", torch.bfloat16, 1, 77, True),
+             ("fp32", torch.float32, 2, 256, True)]
+    rows = []
+    for name, dt, b, t, nonzero_s0 in cases:
+        r, k, v = (torch.randn(b, t, h, n, generator=g, device="cuda").to(dt)
+                   for _ in range(3))
+        w = 0.45 + 0.5 * torch.sigmoid(
+            torch.randn(b, t, h, n, generator=g, device="cuda"))
+        u = 0.1 * torch.randn(h, n, generator=g, device="cuda")
+        # the main path hands the kernel a zero state, not None
+        s0 = torch.randn(b, h, n, n, generator=g, device="cuda") \
+            if nonzero_s0 else torch.zeros(b, h, n, n, device="cuda")
+        y, s = wkv_ops.wkv6(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        want_y, want_s = wkv6_plain(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        rtol = 2 ** -7 if dt == torch.bfloat16 else 1e-4
+        err = (y.float() - want_y.float()).abs().max().item()
+        s_err = (s - want_s).abs().max().item()
+        if not (_within(y, want_y, rtol) and _within(s, want_s, 1e-4)):
+            raise AssertionError(f"wkv6 {name}: y error {err}, s_end error "
+                                 f"{s_err} beyond rtol {rtol} / 1e-4")
+        heads = slice(0, 4)
+        y64, s64 = _wkv_fp64(r, k, v, w, u, s0, heads)
+        errs64 = [(out[0, :, heads].double() - y64).abs().max().item()
+                  for out in (y, want_y)]
+        serrs64 = [(out[0, heads].double() - s64).abs().max().item()
+                   for out in (s, want_s)]
+        elt = r.element_size()
+        nbytes = (4 * b * t * h * n * elt + 4 * b * t * h * n + 4 * h * n
+                  + 2 * 4 * b * h * n * n)
+        flops = b * t * h * (5 * n * n + 5 * n)
+        t_bytes = nbytes / HBM_BYTES_S * 1e3
+        t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+        ms = _time_ms(lambda: wkv_ops.wkv6(r, k, v, w, u, s0))
+        rows.append(dict(
+            WKV_KERNEL, case=f"{name}/{str(dt).split('.')[1]}",
+            path="rwkv6-3b", shape=dict(B=b, T=t, H=h, N=n,
+                                        s0="random" if nonzero_s0 else "0"),
+            max_abs_err=err, max_err=err, s_end_err=s_err,
+            tol=dict(y_rtol=rtol, s_end_rtol=1e-4, atol=1e-4),
+            err_fp64=errs64[0], plain_err_fp64=errs64[1],
+            s_end_err_fp64=serrs64[0], plain_s_end_err_fp64=serrs64[1],
+            ms=ms, kernel_ms=ms,
+            plain_ms=_time_ms(lambda: wkv6_plain(r, k, v, w, u, s0), reps=5,
+                              warmup=1),
+            library_ms=None,
+            library="none: no single PyTorch call computes WKV-6",
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations"))
+        print(f"kernel wkv6 {rows[-1]['case']} B={b} T={t}: y err {err}, "
+              f"s_end err {s_err} (rtol {rtol}; against fp64 on 4 heads: "
+              f"kernel {errs64[0]} / {serrs64[0]}, plain {errs64[1]} / "
+              f"{serrs64[1]}), {ms} ms, plain {rows[-1]['plain_ms']} ms, "
+              f"bound {rows[-1]['bound_ms']} ms ({rows[-1]['bound_by']})")
+    return rows
+
+
+def phase_scan_kernel(seed: int) -> list:
+    """prefix_scan against its plain version.  Tolerances: int32 exact;
+    floats within 1e-6 of the row's sum of |x| (the same sums in another
+    order, fp32), bf16 also within one bf16 ulp of the output (2^-7
+    relative: each output is rounded to bf16)."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+    cases = [("bench_small", torch.float32, 4, 1024),
+             ("bench_large", torch.float32, 8, 8192),
+             ("many_rows", torch.float32, 4096, 4096),
+             ("many_rows", torch.int32, 4096, 4096),
+             ("many_rows", torch.bfloat16, 4096, 4096),
+             ("one_long_row", torch.float32, 1, 1 << 24)]
+    rows = []
+    for name, dt, r, n in cases:
+        if dt == torch.int32:
+            x = torch.randint(-50, 51, (r, n), generator=g, device="cuda",
+                              dtype=torch.int32)
+        else:
+            x = torch.randn(r, n, generator=g, device="cuda").to(dt)
+        got = scan_ops.prefix_scan(x)
+        torch.cuda.synchronize()
+        want = prefix_scan_plain(x)
+        torch.cuda.synchronize()
+        err = (got.double() - want.double()).abs().max().item()
+        err64 = plain_err64 = None
+        if dt == torch.int32:
+            ok, tol = torch.equal(got, want), "exact"
+        else:
+            bound = 1e-6 * x.float().abs().sum(-1, keepdim=True)
+            rtol = 2 ** -7 if dt == torch.bfloat16 else 0.0
+            ok = _within(got, want, rtol, bound)
+            tol = dict(atol="1e-6 * row sum |x|", rtol=rtol)
+            exact = torch.cumsum(x.double(), -1)
+            err64, plain_err64 = ((out.double() - exact).abs().max().item()
+                                  for out in (got, want))
+            del exact
+        if not ok:
+            raise AssertionError(f"prefix_scan {name} {dt}: max error {err}")
+        acc = acc_dtype(dt)
+        nbytes = 2 * x.numel() * x.element_size()
+        t_bytes = nbytes / HBM_BYTES_S * 1e3
+        # one add per element on the CUDA cores (int32 counted at the fp32
+        # rate; the adds never bind here)
+        t_ops = x.numel() / PEAK_FLOPS[torch.float32] * 1e3
+        ms = _time_ms(lambda: scan_ops.prefix_scan(x))
+        rows.append(dict(
+            SCAN_KERNEL, case=f"{name}/{str(dt).split('.')[1]}",
+            path=SCAN_PATH,
+            shape=dict(R=r, N=n), max_abs_err=err, max_err=err, tol=tol,
+            err_fp64=err64, plain_err_fp64=plain_err64, ms=ms, kernel_ms=ms,
+            plain_ms=_time_ms(lambda: prefix_scan_plain(x)),
+            library_ms=_time_ms(lambda: torch.cumsum(x, -1, dtype=acc)),
+            library=f"torch.cumsum(x, -1, dtype={acc})",
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations"))
+        print(f"kernel prefix_scan {rows[-1]['case']} R={r} N={n}: max_err "
+              f"{err} ({tol}; against fp64: kernel {err64}, plain "
+              f"{plain_err64}), {ms} ms, plain {rows[-1]['plain_ms']} ms, "
+              f"cumsum {rows[-1]['library_ms']} ms, bound "
+              f"{rows[-1]['bound_ms']} ms ({rows[-1]['bound_by']})")
+        del x, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_scan_path(seed: int) -> dict:
+    """The prefix scan's path: ``prefix_scan`` on kernel_bench's fp32
+    (4, 1024) and (8, 8192) and beyond_paper's int32 arange(2^14) as
+    (4, 4096); int32 exact, fp32 within 1e-6 of the row's sum of |x|."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 4)
+    inputs = [torch.randn(4, 1024, generator=g, device="cuda"),
+              torch.randn(8, 8192, generator=g, device="cuda"),
+              torch.arange(1 << 14, dtype=torch.int32,
+                           device="cuda").reshape(4, -1)]
+    for counter in COUNTERS.values():
+        counter.launches = 0
+    outs = [scan_ops.prefix_scan(x) for x in inputs]
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in COUNTERS.items()}
+    if launches != dict(dict.fromkeys(COUNTERS, 0),
+                        prefix_scan=len(inputs)):
+        raise AssertionError(f"prefix-scan path launches: {launches}")
+    for x, out in zip(inputs, outs):
+        want = prefix_scan_plain(x)
+        ok = torch.equal(out, want) if x.dtype == torch.int32 else _within(
+            out, want, 0.0, 1e-6 * x.abs().sum(-1, keepdim=True))
+        if not ok:
+            raise AssertionError(f"prefix-scan path {tuple(x.shape)} "
+                                 f"{x.dtype}: wrong")
+    stats = dict(arch=SCAN_PATH, inputs=[[*x.shape, str(x.dtype)]
+                                         for x in inputs],
+                 launches=launches)
+    print("scan path: " + json.dumps(stats))
+    return stats
+
+
 def _prompts(rng, n, vocab, longest=1024):
     return [rng.integers(0, vocab, int(rng.integers(64, longest + 1)))
             for _ in range(n)]
@@ -386,12 +620,13 @@ class _Phase:
         return logits, cache
 
 
-def phase_main_path(model, params, prompts, *, s_max, max_new,
+def phase_main_path(model, params, prompts, *, s_max, max_new, kv_mode,
                     kernels) -> dict:
-    """Serve ``prompts`` through the paged engine; ``kernels`` must each be
-    launched in both prefill and decode."""
+    """Serve ``prompts`` through the engine in ``kv_mode``.  ``kernels``
+    maps a kernel to (in prefill, in decode): where True it must be
+    launched once a layer in every call, where False never."""
     eng = ServingEngine(model, params, max_batch=8, s_max=s_max,
-                        block_size=16, kv_mode="paged")
+                        block_size=16, kv_mode=kv_mode)
     prefill, decode = _Phase(eng._prefill), _Phase(eng._decode)
     eng._prefill, eng._decode = prefill, decode
     reqs = [eng.submit(p, max_new_tokens=max_new, priority=float(i % 3))
@@ -407,16 +642,22 @@ def phase_main_path(model, params, prompts, *, s_max, max_new,
     launches = {k: c.launches for k, c in COUNTERS.items()}
     if not all(r.state.name == "DONE" for r in reqs):
         raise AssertionError("not every request finished")
-    eng.alloc.check()
-    for k in kernels:
+    if eng.paged:
+        eng.alloc.check()
+    layers = model.cfg.num_layers
+    for k, (in_prefill, in_decode) in kernels.items():
         p_n, d_n = prefill.launches[k], decode.launches[k]
-        if p_n == 0 or d_n == 0 or launches[k] != p_n + d_n:
+        want = (layers * prefill.calls * in_prefill,
+                layers * decode.calls * in_decode)
+        if (p_n, d_n) != want or want == (0, 0) \
+                or launches[k] != p_n + d_n:
             raise AssertionError(f"{k} launches: prefill {p_n}, decode "
-                                 f"{d_n}, total {launches[k]}")
+                                 f"{d_n}, total {launches[k]}; expected "
+                                 f"{want}")
     tokens = sum(len(outs[r.rid]) for r in reqs)
     if tokens != max_new * len(reqs):
         raise AssertionError(f"{tokens} tokens for {len(reqs)} requests")
-    stats = dict(arch=model.cfg.name, layers=model.cfg.num_layers,
+    stats = dict(arch=model.cfg.name, layers=layers, kv_mode=eng.kv_mode,
                  requests=len(reqs), tokens=tokens, wall_s=wall,
                  tokens_per_s=tokens / wall, prefill_s=prefill.seconds,
                  prefill_calls=prefill.calls,
@@ -449,6 +690,82 @@ def phase_paged_equals_contiguous(model, params, prompts, s_max) -> None:
           f"{sum(map(len, results['paged']))} identical tokens")
 
 
+def _cast_tree(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def phase_rwkv_checks(model, params, prompts) -> dict:
+    """The two checks that take paged == contiguous's place for RWKV-6 (no
+    paged path), on the last logits of each prompt.
+
+    * State hand-off, bf16: prefill(p + [t]) against prefill(p) then
+      decode_step(t), within the reference's bf16 bound of 0.25.
+    * Route: the kernel (use_flash) against the chunked scan.  In bf16 at
+      32 layers the two routes' roundings differ by more than 0.25 on
+      random weights, while each stays as far from the fp32 logits as the
+      other; so the route is held in fp32 (the same weights, cast), where
+      both sum the same fp32 products in other orders, within 1e-3; and in
+      bf16 the kernel route's distance from the fp32 logits must stay
+      within 1.5 times the scan route's."""
+    cfg = model.cfg
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    params32 = _cast_tree(params, torch.float32)
+    routes = {"kernel_bf16": (model, params),
+              "scan_bf16": (build_model(cfg.replace(use_flash=False),
+                                        model.device), params),
+              "kernel_fp32": (build_model(cfg32, model.device), params32),
+              "scan_fp32": (build_model(cfg32.replace(use_flash=False),
+                                        model.device), params32)}
+    out = dict(prompts=[len(p) for p in prompts], handoff_err=[],
+               route_err_fp32=[], route_err_bf16=[],
+               kernel_bf16_to_fp32=[], scan_bf16_to_fp32=[],
+               handoff_bound=BF16_LOGIT_TOL, route_bound_fp32=ROUTE_TOL_FP32)
+    for p in prompts:
+        toks = torch.as_tensor(p[None, :], device="cuda")
+        logits = {}
+        for name, (m, prm) in routes.items():
+            n0 = wkv_ops.wkv6.launches
+            logits[name] = m.prefill(prm, {"tokens": toks})[0].float()
+            launched = wkv_ops.wkv6.launches - n0
+            if launched != (cfg.num_layers if m.cfg.use_flash else 0):
+                raise AssertionError(f"{name}: wkv6 launched {launched} "
+                                     "times in one prefill")
+        _, state = model.prefill(params, {"tokens": toks[:, :-1]})
+        stepped, _ = model.decode_step(params, toks[:, -1:], state,
+                                       toks.shape[1] - 1)
+        for x in (*logits.values(), stepped):
+            if not torch.isfinite(x).all():
+                raise AssertionError("non-finite logits")
+
+        def dist(a, b):
+            return (a - b).abs().max().item()
+        exact = logits["kernel_fp32"]
+        out["handoff_err"].append(dist(logits["kernel_bf16"],
+                                       stepped.float()))
+        out["route_err_fp32"].append(dist(exact, logits["scan_fp32"]))
+        out["route_err_bf16"].append(dist(logits["kernel_bf16"],
+                                          logits["scan_bf16"]))
+        out["kernel_bf16_to_fp32"].append(dist(logits["kernel_bf16"], exact))
+        out["scan_bf16_to_fp32"].append(dist(logits["scan_bf16"], exact))
+    print("rwkv checks: " + json.dumps(out))
+    if max(out["handoff_err"]) >= BF16_LOGIT_TOL:
+        raise AssertionError(f"rwkv6-3b state hand-off: {out['handoff_err']}"
+                             f" (bound {BF16_LOGIT_TOL})")
+    if max(out["route_err_fp32"]) >= ROUTE_TOL_FP32:
+        raise AssertionError(f"rwkv6-3b fp32 route: {out['route_err_fp32']}"
+                             f" (bound {ROUTE_TOL_FP32})")
+    if any(k > 1.5 * sc for k, sc in zip(out["kernel_bf16_to_fp32"],
+                                         out["scan_bf16_to_fp32"])):
+        raise AssertionError("rwkv6-3b bf16: the kernel route is farther "
+                             "from the fp32 logits than 1.5x the scan's")
+    del routes, params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _init(cfg, seed):
     model = build_model(cfg, "cuda")
     t0 = time.perf_counter()
@@ -473,6 +790,9 @@ def main() -> int:
     phase_build()
     flash_rows = phase_kernels(args.seed)
     gmm_rows = phase_gmm_kernel(args.seed)
+    wkv_rows = phase_wkv6_kernel(args.seed)
+    scan_rows = phase_scan_kernel(args.seed)
+    scan_path = phase_scan_path(args.seed)
     rng = np.random.default_rng(args.seed)
 
     # main path 1: qwen2-1.5b at full depth
@@ -480,7 +800,8 @@ def main() -> int:
     model, params = _init(cfg, args.seed)
     prompts = _prompts(rng, 16, cfg.vocab_size)
     qwen = phase_main_path(model, params, prompts, s_max=2048, max_new=32,
-                           kernels=["flash_attention"])
+                           kv_mode="paged",
+                           kernels={"flash_attention": (True, True)})
     phase_paged_equals_contiguous(model, params, prompts[:4], 2048)
     del model, params
     gc.collect()
@@ -491,16 +812,31 @@ def main() -> int:
     model, params = _init(cfg, args.seed)
     prompts = _prompts(rng, 8, cfg.vocab_size, longest=512)
     mixtral = phase_main_path(model, params, prompts, s_max=1024,
-                              max_new=16,
-                              kernels=["flash_attention", "grouped_swiglu"])
+                              max_new=16, kv_mode="paged",
+                              kernels={"flash_attention": (True, True),
+                                       "grouped_swiglu": (True, True)})
     phase_paged_equals_contiguous(model, params, prompts[:4], 1024)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # each row carries its kernel's launches on the main path it was sized
-    # for (the fp32 and synthetic-mask rows: the path whose heads they use)
-    by_path = {p["arch"]: p["launches"] for p in (qwen, mixtral)}
-    for row in flash_rows + gmm_rows:
+    # main path 3: rwkv6-3b at full depth and width, contiguous state cache
+    cfg = get_config("rwkv6-3b").replace(use_flash=True)
+    model, params = _init(cfg, args.seed)
+    prompts = _prompts(rng, 8, cfg.vocab_size)
+    rwkv = phase_main_path(model, params, prompts, s_max=2048, max_new=32,
+                           kv_mode="contiguous",
+                           kernels={"wkv6": (True, False)})
+    phase_rwkv_checks(model, params, prompts[:4])
+
+    # each row carries its kernel's launches on the path it was sized for
+    # (the fp32 and synthetic-mask rows: the path whose heads they use)
+    by_path = {p["arch"]: p["launches"]
+               for p in (qwen, mixtral, rwkv, scan_path)}
+    rows = flash_rows + gmm_rows + wkv_rows + scan_rows
+    for row in rows:
         row["launches"] = by_path[row["path"]][row["name"]]
-    print(json.dumps({"kernels": flash_rows + gmm_rows}))
+    print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

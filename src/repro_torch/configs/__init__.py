@@ -1,10 +1,11 @@
-"""Architecture configs ported so far: ``qwen2-1.5b``, ``mixtral-8x22b``."""
+"""Architecture configs ported so far: ``qwen2-1.5b``, ``mixtral-8x22b``,
+``rwkv6-3b``."""
 from .base import ModelConfig, list_configs, register, scale_down
 from .base import get_config as _get_config
 
 _LOADED = False
 
-_ARCH_MODULES = ("qwen2_1_5b", "mixtral_8x22b")
+_ARCH_MODULES = ("qwen2_1_5b", "mixtral_8x22b", "rwkv6_3b")
 
 
 def _load_all() -> None:

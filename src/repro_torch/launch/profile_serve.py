@@ -1,12 +1,15 @@
 """Where the serving path's time goes on the card: ``torch.profiler`` over
-(a) a window of decode steps of the paged engine with every slot busy and
-(b) whole-prompt prefills, for a full-width model with random weights at
-the serving shape of ``chip_smoke.py``'s main paths.
+(a) a window of decode steps of the serving engine with every slot busy
+(the paged engine, or the contiguous one for a family without a paged
+path, such as RWKV-6) and (b) whole-prompt prefills, for a full-width model
+with random weights at the serving shape of ``chip_smoke.py``'s main paths.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --out build/profile.json
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch mixtral-8x22b --layers 8 --out build/profile_mixtral.json
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch rwkv6-3b --out build/profile_rwkv.json
 
 ``--layers`` cuts the depth (the widths stay as published): full
 Mixtral-8x22B needs ~281 GB, so one card holds 8 of its 56 layers.
@@ -106,7 +109,7 @@ def main(argv=None) -> int:
     params = model.init(args.seed)
     rng = np.random.default_rng(args.seed)
     eng = ServingEngine(model, params, max_batch=MAX_BATCH, s_max=S_MAX,
-                        kv_mode="paged")
+                        kv_mode="auto")
     budget = 2 * STEPS + 4 * MAX_BATCH   # outlasts admission and windows
     for _ in range(MAX_BATCH):
         eng.submit(rng.integers(0, cfg.vocab_size,
@@ -127,7 +130,7 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout
     out = {"device": card.splitlines()[0].strip(), "arch": cfg.name,
-           "layers": cfg.num_layers,
+           "layers": cfg.num_layers, "kv_mode": eng.kv_mode,
            "max_batch": MAX_BATCH, "s_max": S_MAX, "decode_step": decode,
            "prefill": dict(prefill, prompt_len=PROMPT_LEN)}
     print(json.dumps(out))

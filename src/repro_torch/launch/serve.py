@@ -14,6 +14,9 @@ Equality gate (paged and contiguous KV must generate identical tokens):
 ``--arch mixtral-8x22b`` serves the MoE family (grouped-SwiGLU kernel);
 full Mixtral-8x22B does not fit one card, so on the GPU run it with
 ``--smoke`` (``chip_smoke.py`` serves it at full width, 8 layers).
+``--arch rwkv6-3b`` serves RWKV-6 (WKV-6 kernel in prefill) through the
+contiguous state cache: the family has no paged path, so ``--kv auto``
+resolves to contiguous and ``--check-paged-equality`` skips the paged modes.
 
 The flags are those of ``repro.launch.serve`` plus ``--device``;
 ``--replicas > 1``, ``--spec-draft``, ``--chaos`` and ``--autoscale`` are
@@ -116,6 +119,9 @@ def _check_paged_equality(args, model, params, cfg) -> int:
                              prefill_chunk=args.prefill_chunk or 8,
                              prefix_cache=True))]
     for mode, over in modes:
+        if mode != "contiguous" and not model.supports_paged:
+            print(f"{mode}: family {cfg.family!r} has no paged path — skip")
+            continue
         kw = dict(_engine_kw(args), **over)   # --num-blocks etc. flow in
         eng = ServingEngine(model, params, **kw)
         if mode == "paged+cache":
@@ -133,6 +139,8 @@ def _check_paged_equality(args, model, params, cfg) -> int:
             cache_eng = eng
         results[mode] = [outs[r.rid] for r in reqs]
         print(f"{mode}: {sum(len(o) for o in results[mode])} tokens")
+    if "paged" not in results:
+        return 0
     if results["paged"] != results["contiguous"]:
         bad = sum(1 for a, b in zip(results["paged"],
                                     results["contiguous"]) if a != b)

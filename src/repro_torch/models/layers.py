@@ -1,4 +1,5 @@
-"""Shared building blocks: RMSNorm, linear, RoPE, SwiGLU MLP, embeddings.
+"""Shared building blocks: RMSNorm, GroupNorm, linear, RoPE, SwiGLU MLP,
+embeddings.
 
 The PyTorch counterpart of ``repro/models/layers.py``.  Parameters are plain
 nested dicts of tensors, in the reference's layouts (linear weights
@@ -19,8 +20,8 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 
 __all__ = ["dtype_of", "init_linear", "linear", "init_rms_norm", "rms_norm",
-           "init_embedding", "embed", "rope_freqs", "apply_rope",
-           "init_mlp", "mlp"]
+           "init_group_norm", "group_norm", "init_embedding", "embed",
+           "rope_freqs", "apply_rope", "init_mlp", "mlp"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -61,15 +62,37 @@ def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * p["scale"]
 
 
+def init_group_norm(num_groups: int, d: int, dtype=torch.bfloat16,
+                    device=None) -> dict:
+    del num_groups  # static: callers pass it to group_norm (not a param)
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def group_norm(p: dict, x: torch.Tensor, groups: int,
+               eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over the last dim split into ``groups`` groups: statistics
+    in fp32, cast back to x's type before the scale and bias."""
+    shape = x.shape
+    xf = x.float().reshape(*shape[:-1], groups, shape[-1] // groups)
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, unbiased=False, keepdim=True)
+    xf = (xf - mean) * torch.rsqrt(var + eps)
+    return xf.reshape(shape).to(x.dtype) * p["scale"] + p["bias"]
+
+
 def init_embedding(gen: torch.Generator, vocab: int, d: int,
                    dtype=torch.bfloat16) -> dict:
     x = torch.randn((vocab, d), generator=gen, device=gen.device)
     return {"table": (x * 0.02).to(dtype)}
 
 
-def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+def embed(p: dict, tokens: torch.Tensor,
+          onehot: bool = False) -> torch.Tensor:
     """Gather form only: the reference's one-hot form is off for the ported
     configs."""
+    if onehot:
+        raise NotImplementedError("the one-hot embedding is not ported")
     return p["table"][tokens]
 
 

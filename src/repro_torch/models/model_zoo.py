@@ -1,5 +1,6 @@
 """Uniform model interface (``Model``, ``build_model``) for the ported
-families: ``dense`` and ``moe`` (one trunk, as in the reference).
+families: ``dense`` and ``moe`` (one trunk, as in the reference) and
+``ssm`` (RWKV-6, no paged path).
 
 The PyTorch counterpart of ``repro/models/model_zoo.py``.  A ``Model`` is
 bound to a device; ``init(seed)`` draws its parameters there.
@@ -13,7 +14,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from . import transformer
+from . import rwkv_lm, transformer
 
 __all__ = ["Model", "build_model"]
 
@@ -45,6 +46,19 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
     """``device`` None means CUDA (raises without a CUDA device); pass
     ``"cpu"`` to run on the CPU."""
     dev = resolve_device(device)
+    if cfg.family == "ssm":
+        return Model(
+            cfg=cfg,
+            device=dev,
+            init=lambda seed: rwkv_lm.init_rwkv_lm(
+                torch.Generator(device=dev).manual_seed(seed), cfg),
+            prefill=lambda p, b, s_max=None: rwkv_lm.rwkv_prefill(
+                p, b, cfg, s_max),
+            decode_step=lambda p, tok, cache, pos: rwkv_lm.rwkv_decode_step(
+                p, tok, cache, pos, cfg),
+            init_cache=lambda batch, s_max: rwkv_lm.init_rwkv_cache(
+                cfg, batch, dev),
+        )
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not yet ported "
                                   "to repro_torch")

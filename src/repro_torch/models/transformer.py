@@ -50,10 +50,12 @@ def _ffn(p: dict, z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return mlp(p["mlp"], z)
 
 
-def _stacked_blocks(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    """Every block's tree with ``[L, ...]`` leaves.  Each leaf is allocated
-    once and filled layer by layer, so the weights are never held twice:
-    the peak is the stack plus one layer's tree."""
+def _stacked_blocks(gen: torch.Generator, cfg: ModelConfig,
+                    init_block=_init_block) -> dict:
+    """Every block's tree (``init_block(gen, cfg)``) with ``[L, ...]``
+    leaves.  Each leaf is allocated once and filled layer by layer, so the
+    weights are never held twice: the peak is the stack plus one layer's
+    tree."""
     def empty(tree):
         if isinstance(tree, dict):
             return {k: empty(v) for k, v in tree.items()}
@@ -69,7 +71,7 @@ def _stacked_blocks(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
     blocks = None
     for i in range(cfg.num_layers):
-        layer = _init_block(gen, cfg)
+        layer = init_block(gen, cfg)
         if blocks is None:
             blocks = empty(layer)
         fill(blocks, layer, i)

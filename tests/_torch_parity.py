@@ -26,13 +26,18 @@ def configs(arch="qwen2-1.5b", **over):
     return jcfg, tcfg
 
 
+#: leaves the reference initialises to constants: biases (0), norm scales
+#: (1), RWKV's token-shift mixes (0.5) and decay bias (-2)
+CONSTANT_LEAVES = ("b", "bias", "scale", "mu_x", "mu_k", "mu_r", "maa", "w0")
+
+
 def perturb(tree, rng):
-    """Replace the zero biases and unit norm scales by random values, so
-    the parity tests exercise them."""
+    """Add N(0, 0.3) noise to the leaves the reference initialises to
+    constants, so the parity tests exercise them."""
     if isinstance(tree, dict):
         return {k: (rng.normal(0, 0.3, np.shape(v)).astype(np.float32)
-                    + (1.0 if k == "scale" else 0.0)
-                    if k in ("b", "scale") else perturb(v, rng))
+                    + np.asarray(v, np.float32)
+                    if k in CONSTANT_LEAVES else perturb(v, rng))
                 for k, v in tree.items()}
     return tree
 

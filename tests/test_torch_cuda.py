@@ -12,6 +12,10 @@ from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.kernels.moe_gmm.ref import grouped_swiglu_plain
+from repro_torch.kernels.prefix_scan import ops as scan_ops
+from repro_torch.kernels.prefix_scan.ref import prefix_scan_plain
+from repro_torch.kernels.wkv6 import ops as wkv_ops
+from repro_torch.kernels.wkv6.ref import wkv6_plain
 
 
 def _inputs(b, s, t, h, hkv, d, seed=1):
@@ -89,3 +93,80 @@ def test_grouped_swiglu_matches_plain_on_card(e, c, d, f, load, dtype, tol):
         dead = torch.arange(c, device="cuda")[None, :] >= ld[:, None]
         assert torch.all(y[dead] == 0)
         assert torch.equal(y, gmm_ops.grouped_swiglu(x, *w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,h,n,with_s0", [
+    (2, 32, 2, 16, False),
+    (1, 77, 3, 32, True),           # ragged T, a non-zero state handed in
+    (2, 100, 4, 64, True),
+    (1, 1024, 40, 64, False),       # rwkv6-3b's prefill
+])
+def test_wkv6_matches_plain_on_card(b, t, h, n, with_s0, dtype):
+    """r, k, v in ``dtype``; w, u, s0 fp32.  y: bf16 within one bf16 ulp
+    (2^-8 relative, doubled for the rounding point) of the plain version,
+    fp32 within 1e-4 relative; s_end fp32 within 1e-4 relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(b * t + n)
+    r, k, v = (torch.randn(b, t, h, n, generator=g, device="cuda").to(dt)
+               for _ in range(3))
+    w = 0.45 + 0.5 * torch.sigmoid(torch.randn(b, t, h, n, generator=g,
+                                               device="cuda"))
+    u = 0.1 * torch.randn(h, n, generator=g, device="cuda")
+    s0 = torch.randn(b, h, n, n, generator=g, device="cuda") \
+        if with_s0 else None
+    before = wkv_ops.wkv6.launches
+    y, s = wkv_ops.wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert wkv_ops.wkv6.launches == before + 1
+    assert y.dtype == dt and s.dtype == torch.float32
+    want_y, want_s = wkv6_plain(r, k, v, w, u, s0)
+    rtol = 2 ** -7 if dtype == "bfloat16" else 1e-4
+    assert torch.all((y.float() - want_y.float()).abs()
+                     <= rtol * want_y.float().abs() + 1e-4)
+    assert torch.all((s - want_s).abs() <= 1e-4 * want_s.abs() + 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int32", "float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 64), (4, 1000), (2, 3, 130), (8, 8),
+                                   (4, 1024), (3, 1025), (2, 10000)])
+def test_prefix_scan_matches_plain_on_card(shape, dtype):
+    """int32 exact (values in [-50, 50)); fp32 within 1e-6 of each row's
+    sum of |x| (sums in another order); bf16 also within one bf16 ulp of
+    the output (each output rounded to bf16)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    if dtype == "int32":
+        x = torch.randint(-50, 50, shape, generator=g, device="cuda",
+                          dtype=torch.int32)
+    else:
+        x = (8 * torch.randn(shape, generator=g, device="cuda")).to(
+            getattr(torch, dtype))
+    before = scan_ops.prefix_scan.launches
+    got = scan_ops.prefix_scan(x)
+    torch.cuda.synchronize()
+    assert scan_ops.prefix_scan.launches == before + 1
+    want = prefix_scan_plain(x)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    if dtype == "int32":
+        assert torch.equal(got, want)
+        return
+    tol = 1e-6 * x.float().abs().sum(-1, keepdim=True)
+    if dtype == "bfloat16":
+        tol = tol + 2 ** -7 * want.float().abs()
+    assert torch.all((got.float() - want.float()).abs() <= tol)
+
+
+@pytest.mark.cuda
+def test_prefix_scan_int32_wraps_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    x = torch.full((2, 5000), 2 ** 30 + 12345, dtype=torch.int32,
+                   device="cuda")
+    x[1] *= -1
+    assert torch.equal(scan_ops.prefix_scan(x), prefix_scan_plain(x))

@@ -27,12 +27,17 @@ SERVE = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
          "--check-paged-equality"]
 
 
-#: modules that must be among those scanned (the MoE slice's)
+#: modules that must be among those scanned (the MoE slice's and the RWKV
+#: slice's, with the last two kernels)
 REQUIRED = ("repro_torch.core.device.moe_balance", "repro_torch.models.moe",
             "repro_torch.kernels._build", "repro_torch.kernels.moe_gmm",
             "repro_torch.kernels.moe_gmm.ops",
             "repro_torch.kernels.moe_gmm.ref",
-            "repro_torch.kernels.moe_gmm.build")
+            "repro_torch.kernels.moe_gmm.build",
+            "repro_torch.configs.rwkv6_3b", "repro_torch.models.ssm",
+            "repro_torch.models.rwkv_lm") + tuple(
+    f"repro_torch.kernels.{k}{m}" for k in ("wkv6", "prefix_scan")
+    for m in ("", ".ops", ".ref", ".build"))
 
 
 def _modules():
@@ -93,6 +98,18 @@ def test_launcher_equality_gate_on_cpu_moe():
     assert "token-exact: True" in out.stdout
 
 
+def test_launcher_equality_gate_on_cpu_rwkv():
+    """Scaled rwkv6-3b: no paged path, so the gate runs the contiguous
+    engine, skips the paged modes and exits 0, as the reference does."""
+    out = subprocess.run(SERVE + ["--device", "cpu", "--arch", "rwkv6-3b"],
+                         env=ENV, cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "contiguous: 16 tokens" in out.stdout
+    for mode in ("paged", "paged+chunked", "paged+cache"):
+        assert f"{mode}: family 'ssm' has no paged path — skip" in out.stdout
+
+
 def test_launcher_without_cuda_fails_loudly():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
@@ -105,7 +122,7 @@ def test_launcher_without_cuda_fails_loudly():
 @pytest.mark.parametrize("flag", [["--replicas", "2"],
                                   ["--spec-draft", "self"],
                                   ["--chaos", "kill-one"], ["--autoscale"],
-                                  ["--arch", "rwkv6-3b"]])
+                                  ["--arch", "jamba-v0.1-52b"]])
 def test_launcher_refuses_what_is_not_ported(flag):
     out = subprocess.run(SERVE + ["--device", "cpu"] + flag, env=ENV,
                          cwd=ROOT, capture_output=True, text=True,
@@ -122,7 +139,7 @@ def test_build_model_defaults_to_cuda():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_model(cfg)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_model(cfg.replace(family="ssm"), "cpu")
+        build_model(cfg.replace(family="hybrid"), "cpu")
 
 
 def _ref_tree(arch="qwen2-1.5b", **over):
@@ -186,3 +203,29 @@ def test_bridge_moe_tree():
     cast = from_numpy_params(tree, cfg, "cpu", torch.bfloat16)
     assert cast["blocks"]["moe"]["router"]["w"].dtype == torch.float32
     assert cast["blocks"]["attn"]["wq"]["w"].dtype == torch.bfloat16
+
+
+def test_bridge_rwkv_tree():
+    """The ssm tree: stacked [L, ...] leaves bit-exact in bf16; the decay
+    bias ``w0`` and bonus ``u`` stay fp32, also under a ``dtype`` cast."""
+    cfg, tree = _ref_tree("rwkv6-3b")
+    assert set(tree) == {"embed", "blocks", "ln_f", "lm_head"}
+    params = from_numpy_params(tree, cfg, "cpu")
+    tm = params["blocks"]["tm"]
+    h, n = cfg.d_model // cfg.rwkv_head_size, cfg.rwkv_head_size
+    assert tm["u"].shape == (cfg.num_layers, h, n)
+    assert tm["w0"].shape == (cfg.num_layers, cfg.d_model)
+    wr = tree["blocks"]["tm"]["wr"]["w"]
+    assert wr.dtype.name == "bfloat16"
+    assert np.array_equal(tm["wr"]["w"].view(torch.int16).numpy(),
+                          wr.view(np.uint16).view(np.int16))
+    cast = from_numpy_params(tree, cfg, "cpu", torch.bfloat16)
+    for name in ("u", "w0"):
+        assert cast["blocks"]["tm"][name].dtype == torch.float32
+        np.testing.assert_array_equal(cast["blocks"]["tm"][name].numpy(),
+                                      tree["blocks"]["tm"][name])
+    assert cast["blocks"]["tm"]["maa"].dtype == torch.bfloat16
+    assert cast["blocks"]["tm"]["ln_x"]["bias"].dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="needs"):
+        from_numpy_params({k: v for k, v in tree.items() if k != "lm_head"},
+                          cfg, "cpu")
