@@ -14,11 +14,19 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
 3. kernels: each hand-written kernel against its plain PyTorch version at
    the main paths' shapes, within the stated tolerances; the kernel's, the
    plain version's and the library yardstick's times (CUDA events, median
-   over launches, L2 flushed before each), and the bound.
+   over launches, L2 flushed before each), and the bound; for flash
+   attention and the scan also the kernel's and the yardstick's device time
+   (torch.profiler: the kernels a call launches, without the host's gaps).
    - flash attention at qwen2-1.5b's heads (12/2): prefill and decode,
      bf16 and fp32, a window with a bottom-right q_offset, a kv_valid = 0
      row; at Mixtral-8x22B's heads (48/8): a 512-token prefill with its
      4096 window and a decode over the 1024-slot paged view, mixed kv_valid;
+     each row names the kernel that ran (``mma``: bf16 prefill on the
+     tensor cores; ``fma``: decode and fp32 on the CUDA cores), and the
+     bf16 prefill rows add the kernel's and the plain version's error
+     against attention in fp64 on a few heads; then a latency probe of the
+     mma kernel (one kv head a query head, 64 rows, 1024 columns) at one
+     CTA, one CTA an SM and two;
    - grouped SwiGLU at Mixtral-8x22B's widths: decode (C = 8, the load of a
      real routing of 8 tokens), prefill at C = 512 and C = 1024 (real
      routings, ~128 and ~256 rows per expert), an empty expert (exact
@@ -29,8 +37,10 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      kernel and plain version each also against the recurrence in fp64 on
      a few heads;
    - the prefix scan: kernel_bench's (4, 1024) and (8, 8192), R = N = 4096
-     in fp32, int32 (exact) and bf16, and one row of 2^24 (the case one
-     block per row serves worst); torch.cumsum as the yardstick.
+     in fp32, int32 (exact) and bf16 (one tile a row), and rows that the
+     look-back chains: four of 2^22, one of 2^20 + 13 (ragged), one of 2^24
+     in fp32 and in int32; every row run twice, with the largest difference
+     between the two runs (int32: none); torch.cumsum as the yardstick.
 4. main path 1: full-width qwen2-1.5b (28 layers, random bf16 weights from
    --seed) served by the paged ``ServingEngine``: 16 requests, prompts of
    64-1024 tokens, 32 new tokens each; every request done, the allocator's
@@ -187,6 +197,27 @@ def _time_ms(fn, reps: int = 15, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def _device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call: the time of every kernel (and memset) it
+    launches, from torch.profiler over ``reps`` calls (L2 warm), without
+    the host's launch gaps that a timed single call can include."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum((getattr(e, "self_device_time_total", 0)
+              or getattr(e, "device_time_total", 0))
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    return us / reps / 1e3
+
+
 def _visible(b, s, t, causal, window, q_offset, kv_valid):
     """[B, S, T] bool: the kernel's mask on this case's data."""
     i = q_offset + torch.arange(s, device="cuda")[:, None]
@@ -215,6 +246,39 @@ def _bound(q, k, causal, window, q_offset, kv_valid):
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _attn_fp64(q, k, v, kv_valid, causal, window, q_offset, heads=4):
+    """Attention in fp64 for batch row 0 and the first ``heads`` query
+    heads (a fully masked row is 0, as in the kernel): [S, heads, d]."""
+    b, s, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    vis = _visible(1, s, t, causal, window, q_offset,
+                   None if kv_valid is None else kv_valid[:1])[0]
+    outs = []
+    for hh in range(heads):
+        kv = hh // (h // hkv)
+        logits = (q[0, :, hh].double() @ k[0, :, kv].double().T) * d ** -0.5
+        p = torch.softmax(logits.masked_fill(~vis, float("-inf")), -1)
+        outs.append(torch.nan_to_num(p) @ v[0, :, kv].double())
+    return torch.stack(outs, 1)
+
+
+def phase_flash_probe() -> None:
+    """The mma kernel's latency: one query tile of 64 rows over 1024
+    columns (16 kv tiles, no mask) for 1 head, one head an SM and two
+    (non-causal bf16, d = 128, one kv head a query head)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    probe = {}
+    for heads in (1, sms, 2 * sms):
+        q = torch.randn(1, 64, heads, 128, generator=g,
+                        device="cuda").bfloat16()
+        k = torch.randn(1, 1024, heads, 128, generator=g,
+                        device="cuda").bfloat16()
+        probe[f"ctas_{heads}"] = _device_ms(
+            lambda: ops.flash_attention(q, k, k, causal=False))
+    print("flash latency probe (device ms): " + json.dumps(probe))
 
 
 def phase_kernels(seed: int) -> list:
@@ -261,6 +325,16 @@ def phase_kernels(seed: int) -> list:
         if not err <= TOL[dt]:
             raise AssertionError(f"flash_attention {name} {dt}: max error "
                                  f"{err} > {TOL[dt]}")
+        route = ops.kernel_route(dt, s)
+        if route != ("mma" if dt == torch.bfloat16 and s > 4 else "fma"):
+            raise AssertionError(f"flash_attention {name}: route {route}")
+        err64 = plain_err64 = None
+        if route == "mma":
+            exact = _attn_fp64(q, k, v, kv_valid, causal, window, q_offset)
+            err64, plain_err64 = (
+                (out[0, :, :exact.shape[1]].double() - exact).abs().max()
+                .item() for out in (got, want))
+            del exact
         if valid is not None:
             dead = kv_valid == 0
             if dead.any() and not torch.all(got[dead] == 0):
@@ -274,20 +348,30 @@ def phase_kernels(seed: int) -> list:
         scale = d ** -0.5
         bound_ms, bound_by = _bound(q, k, causal, window, q_offset, kv_valid)
         ms = _time_ms(lambda: ops.flash_attention(q, k, v, kv_valid, **kw))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                scale=scale, enable_gqa=True)
         rows.append(dict(
             KERNEL, case=f"{name}/{str(dt).split('.')[1]}", path=path,
             shape=dict(B=b, S=s, T=t, H=h, Hkv=hkv, d=d, window=window,
                        q_offset=q_offset, kv_valid=valid),
-            max_abs_err=err, max_err=err, tol=TOL[dt], ms=ms, kernel_ms=ms,
+            kernel_route=route, max_abs_err=err, max_err=err, tol=TOL[dt],
+            err_fp64=err64, plain_err_fp64=plain_err64, ms=ms, kernel_ms=ms,
             plain_ms=_time_ms(lambda: flash_attention_plain(
                 q, k, v, kv_valid, **kw)),
-            library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
-                scale=scale, enable_gqa=True)),
+            library_ms=_time_ms(sdpa),
+            device_ms=_device_ms(lambda: ops.flash_attention(
+                q, k, v, kv_valid, **kw)),
+            library_device_ms=_device_ms(sdpa),
             bound_ms=bound_ms, bound_by=bound_by))
-        print(f"kernel {rows[-1]['case']} ({path}, H={h}/{hkv}): max_err "
-              f"{err} (tol {TOL[dt]}), {ms} ms, plain {rows[-1]['plain_ms']} "
-              f"ms, sdpa {rows[-1]['library_ms']} ms, bound {bound_ms} ms "
+        print(f"kernel {rows[-1]['case']} ({path}, H={h}/{hkv}, {route}): "
+              f"max_err {err} (tol {TOL[dt]}; against fp64: kernel {err64}, "
+              f"plain {plain_err64}), {ms} ms, plain "
+              f"{rows[-1]['plain_ms']} ms, sdpa {rows[-1]['library_ms']} ms; "
+              f"device {rows[-1]['device_ms']} ms, sdpa "
+              f"{rows[-1]['library_device_ms']} ms; bound {bound_ms} ms "
               f"({bound_by})")
     return rows
 
@@ -501,14 +585,19 @@ def phase_scan_kernel(seed: int) -> list:
     """prefix_scan against its plain version.  Tolerances: int32 exact;
     floats within 1e-6 of the row's sum of |x| (the same sums in another
     order, fp32), bf16 also within one bf16 ulp of the output (2^-7
-    relative: each output is rounded to bf16)."""
+    relative: each output is rounded to bf16).  Each case runs twice: a
+    float carry's grouping follows the look-back's timing, so floats may
+    differ in the last bits between runs; int32 may not."""
     g = torch.Generator(device="cuda").manual_seed(seed + 3)
     cases = [("bench_small", torch.float32, 4, 1024),
              ("bench_large", torch.float32, 8, 8192),
              ("many_rows", torch.float32, 4096, 4096),
              ("many_rows", torch.int32, 4096, 4096),
              ("many_rows", torch.bfloat16, 4096, 4096),
-             ("one_long_row", torch.float32, 1, 1 << 24)]
+             ("few_long_rows", torch.float32, 4, 1 << 22),
+             ("ragged_long_row", torch.float32, 1, (1 << 20) + 13),
+             ("one_long_row", torch.float32, 1, 1 << 24),
+             ("one_long_row", torch.int32, 1, 1 << 24)]
     rows = []
     for name, dt, r, n in cases:
         if dt == torch.int32:
@@ -517,10 +606,16 @@ def phase_scan_kernel(seed: int) -> list:
         else:
             x = torch.randn(r, n, generator=g, device="cuda").to(dt)
         got = scan_ops.prefix_scan(x)
+        again = scan_ops.prefix_scan(x)
         torch.cuda.synchronize()
         want = prefix_scan_plain(x)
         torch.cuda.synchronize()
         err = (got.double() - want.double()).abs().max().item()
+        rerun_diff = (got.double() - again.double()).abs().max().item()
+        if dt == torch.int32 and not torch.equal(got, again):
+            raise AssertionError(f"prefix_scan {name} int32: two runs differ "
+                                 f"by {rerun_diff}")
+        plan = scan_ops.scan_plan(r, n)
         err64 = plain_err64 = None
         if dt == torch.int32:
             ok, tol = torch.equal(got, want), "exact"
@@ -545,19 +640,28 @@ def phase_scan_kernel(seed: int) -> list:
         rows.append(dict(
             SCAN_KERNEL, case=f"{name}/{str(dt).split('.')[1]}",
             path=SCAN_PATH,
-            shape=dict(R=r, N=n), max_abs_err=err, max_err=err, tol=tol,
+            shape=dict(R=r, N=n), tile=f"{plan.block}x{plan.items}",
+            tiles_per_row=plan.tiles_per_row, max_abs_err=err, max_err=err,
+            rerun_diff=rerun_diff, tol=tol,
             err_fp64=err64, plain_err_fp64=plain_err64, ms=ms, kernel_ms=ms,
             plain_ms=_time_ms(lambda: prefix_scan_plain(x)),
             library_ms=_time_ms(lambda: torch.cumsum(x, -1, dtype=acc)),
             library=f"torch.cumsum(x, -1, dtype={acc})",
+            device_ms=_device_ms(lambda: scan_ops.prefix_scan(x)),
+            library_device_ms=_device_ms(
+                lambda: torch.cumsum(x, -1, dtype=acc)),
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations"))
-        print(f"kernel prefix_scan {rows[-1]['case']} R={r} N={n}: max_err "
-              f"{err} ({tol}; against fp64: kernel {err64}, plain "
-              f"{plain_err64}), {ms} ms, plain {rows[-1]['plain_ms']} ms, "
-              f"cumsum {rows[-1]['library_ms']} ms, bound "
+        print(f"kernel prefix_scan {rows[-1]['case']} R={r} N={n} "
+              f"({plan.tiles_per_row} tiles of {rows[-1]['tile']} a row): "
+              f"max_err {err} ({tol}; against fp64: kernel {err64}, plain "
+              f"{plain_err64}; between two runs {rerun_diff}), {ms} ms, "
+              f"plain {rows[-1]['plain_ms']} ms, "
+              f"cumsum {rows[-1]['library_ms']} ms; device "
+              f"{rows[-1]['device_ms']} ms, cumsum "
+              f"{rows[-1]['library_device_ms']} ms; bound "
               f"{rows[-1]['bound_ms']} ms ({rows[-1]['bound_by']})")
-        del x, got, want
+        del x, got, again, want
     torch.cuda.empty_cache()
     return rows
 
@@ -789,6 +893,7 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     flash_rows = phase_kernels(args.seed)
+    phase_flash_probe()
     gmm_rows = phase_gmm_kernel(args.seed)
     wkv_rows = phase_wkv6_kernel(args.seed)
     scan_rows = phase_scan_kernel(args.seed)

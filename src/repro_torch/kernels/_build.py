@@ -3,10 +3,12 @@
 ``nvcc`` compiles one ``csrc/*.cu`` file for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``.  The build happens
 at first use, into ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``), under a name that carries the source's hash: an edited
-source is rebuilt, an unchanged one is loaded as it is.  The library is
-written under a temporary name and renamed into place, so builds started
-together (threads or processes) never load a half-written file.
+``.gitignore``), under a name that carries the hash of every file in the
+source's directory (the ``.cu`` and any header it includes from there): an
+edited source or header is rebuilt, an unchanged one is loaded as it is.
+The library is written under a temporary name and renamed into place, so
+builds started together (threads or processes) never load a half-written
+file.
 """
 from __future__ import annotations
 
@@ -47,10 +49,20 @@ class CudaLibrary:
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
 
+    def digest(self) -> str:
+        """Hash of every file beside the source (names and contents)."""
+        h = hashlib.sha256()
+        for path in sorted(p for p in self.source.parent.rglob("*")
+                           if p.is_file()):
+            h.update(str(path.relative_to(self.source.parent)).encode())
+            h.update(b"\0")
+            h.update(path.read_bytes())
+        return h.hexdigest()[:16]
+
     def build(self) -> tuple[Path, float, str]:
         """Compile the library if its hashed name is not built yet.  Returns
         (path, build seconds (0 when already built), nvcc's output)."""
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
+        digest = self.digest()
         out = BUILD_DIR / f"lib{self.name}-{digest}.so"
         if out.exists():
             return out, 0.0, ""

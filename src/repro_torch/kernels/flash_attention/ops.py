@@ -1,7 +1,8 @@
 """Public wrapper: model layout [B, S, H, d] in and out, GQA, masking knobs.
 
-On a CUDA tensor ``flash_attention`` launches the hand-written kernel
-(``csrc/flash_attention.cu``) or raises; on a CPU tensor it runs the plain
+On a CUDA tensor ``flash_attention`` launches one of the two hand-written
+kernels of ``csrc/flash_attention.cu`` or raises; :func:`kernel_route` picks
+it from the dtype and the query length.  On a CPU tensor it runs the plain
 version (``ref.flash_attention_plain``).  ``flash_attention.launches`` counts
 kernel launches.
 
@@ -18,11 +19,22 @@ import torch
 
 from .ref import flash_attention_plain
 
-__all__ = ["flash_attention", "HEAD_DIMS"]
+__all__ = ["flash_attention", "kernel_route", "HEAD_DIMS"]
 
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTE_CODE = {"fma": 0, "mma": 1}
+#: the longest query the decode tile (4 rows) takes
+DECODE_ROWS = 4
+
+
+def kernel_route(dtype: torch.dtype, s: int) -> str:
+    """The kernel a CUDA call of S query rows takes: ``"mma"`` (tensor
+    cores) for bf16 prefill (S > 4), else ``"fma"`` (CUDA cores: decode in
+    either dtype, and fp32, which stays off the tensor cores while TF32 is
+    off)."""
+    return "mma" if dtype == torch.bfloat16 and s > DECODE_ROWS else "fma"
 
 
 def _check_cuda(q, k, v, kv_valid) -> None:
@@ -85,7 +97,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.flash_attention_fwd(
-        _DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _DTYPE_CODE[q.dtype], d, _ROUTE_CODE[kernel_route(q.dtype, s)],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if kv_valid is None else kv_valid.data_ptr(), out.data_ptr(),
         b, s, t, h, hkv, int(q_offset), int(bool(causal)),
         0 if window is None else int(window), ctypes.c_float(scale), stream)

@@ -170,3 +170,80 @@ def test_prefix_scan_int32_wraps_on_card():
                    device="cuda")
     x[1] *= -1
     assert torch.equal(scan_ops.prefix_scan(x), prefix_scan_plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,t,h,hkv,d,causal,window,q_offset,kv_valid", [
+    (2, 77, 77, 4, 2, 32, True, None, 0, None),        # ragged S = T
+    (2, 200, 300, 4, 2, 64, True, None, 100, None),    # T not a multiple of 64
+    (2, 77, 130, 4, 1, 32, True, None, 53, [100, 130]),  # kv_valid, S > 4
+    (2, 200, 300, 8, 2, 64, False, None, 0, [150, 0]),   # a kv_valid = 0 row
+    (1, 200, 200, 4, 2, 128, True, 48, 0, None),       # window < S
+    (2, 96, 96, 4, 4, 64, True, 16, 0, [90, 0]),
+])
+def test_flash_mma_prefill_on_card(b, s, t, h, hkv, d, causal, window,
+                                   q_offset, kv_valid):
+    """The bf16 prefill route (tensor cores) against the plain version
+    within 3e-2 (P is rounded to bf16 before PV); a kv_valid = 0 row is all
+    zeros; two calls give the same bits (no atomics, no split)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    q, k, v = (torch.from_numpy(x).to("cuda", torch.bfloat16)
+               for x in _inputs(b, s, t, h, hkv, d, seed=s + t))
+    assert ops.kernel_route(q.dtype, s) == "mma"
+    valid = None if kv_valid is None else torch.tensor(
+        kv_valid, dtype=torch.int32, device="cuda")
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, valid, **kw)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, valid, **kw)
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= 3e-2
+    assert torch.equal(got, ops.flash_attention(q, k, v, valid, **kw))
+    if valid is not None:
+        assert torch.all(got[valid == 0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int32", "float32", "bfloat16"])
+@pytest.mark.parametrize("rows", [1, 2, 3])
+def test_prefix_scan_many_tiles_on_card(rows, dtype):
+    """Rows of 2^20 + 13 (129 tiles of 8192, the last ragged) chained by the
+    look-back, with the tolerances of test_prefix_scan_matches_plain_on_card;
+    int32 also the same bits on a second run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    n = (1 << 20) + 13
+    assert scan_ops.scan_plan(rows, n).tiles_per_row > 1
+    g = torch.Generator(device="cuda").manual_seed(rows)
+    if dtype == "int32":
+        x = torch.randint(-50, 50, (rows, n), generator=g, device="cuda",
+                          dtype=torch.int32)
+    else:
+        x = (8 * torch.randn(rows, n, generator=g, device="cuda")).to(
+            getattr(torch, dtype))
+    got = scan_ops.prefix_scan(x)
+    want = prefix_scan_plain(x)
+    if dtype == "int32":
+        assert torch.equal(got, want)
+        assert torch.equal(scan_ops.prefix_scan(x), got)
+        return
+    tol = 1e-6 * x.float().abs().sum(-1, keepdim=True)
+    if dtype == "bfloat16":
+        tol = tol + 2 ** -7 * want.float().abs()
+    assert torch.all((got.float() - want.float()).abs() <= tol)
+
+
+@pytest.mark.cuda
+def test_prefix_scan_int32_wraps_across_tiles_on_card():
+    """Sums that pass 2^31 inside a tile and across the look-back's carry
+    wrap as 32-bit integers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    x = torch.full((2, 3 * 8192 + 5), 2 ** 30 + 12345, dtype=torch.int32,
+                   device="cuda")
+    x[1] *= -1
+    assert scan_ops.scan_plan(2, x.shape[1]).tiles_per_row == 4
+    assert torch.equal(scan_ops.prefix_scan(x), prefix_scan_plain(x))

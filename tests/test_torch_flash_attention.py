@@ -1,6 +1,8 @@
 """The port's flash attention against the JAX reference: the plain version
 (what a CPU tensor runs) against the Pallas kernel in interpret mode and
 against the softmax oracle, and the wrapper's device rules."""
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -8,7 +10,7 @@ import torch
 
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import mha_ref as jax_mha_ref
-from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention import build, ops
 from repro_torch.kernels.flash_attention.ref import (flash_attention_plain,
                                                      mha_ref)
 
@@ -114,3 +116,27 @@ def test_wrapper_never_falls_back_off_cpu(monkeypatch):
         with pytest.raises((RuntimeError, AssertionError),
                            match="CUDA|NVIDIA|cuda"):
             ops.flash_attention(q.to("cuda"), q.to("cuda"), q.to("cuda"))
+
+
+@pytest.mark.parametrize("dtype,s,route", [
+    (torch.bfloat16, 1, "fma"), (torch.bfloat16, 4, "fma"),
+    (torch.bfloat16, 5, "mma"), (torch.bfloat16, 77, "mma"),
+    (torch.bfloat16, 1024, "mma"), (torch.float32, 1, "fma"),
+    (torch.float32, 1024, "fma"),
+])
+def test_kernel_route(dtype, s, route):
+    """bf16 prefill (S > 4) takes the tensor-core kernel; decode and fp32
+    (TF32 stays off) the CUDA-core one."""
+    assert ops.kernel_route(dtype, s) == route
+
+
+def test_c_signature_passes_the_route():
+    """The route goes to C as an int before the pointers; every pointer and
+    the stream are c_void_p (a c_int would cut them to 32 bits)."""
+    argtypes, restype = build.LIBRARY.signatures["flash_attention_fwd"]
+    assert restype is ctypes.c_int and len(argtypes) == 18
+    assert argtypes[:3] == [ctypes.c_int] * 3          # dtype, head dim, route
+    assert argtypes[3:8] == [ctypes.c_void_p] * 5      # q k v kv_valid o
+    assert argtypes[8:16] == [ctypes.c_int] * 8
+    assert argtypes[16:] == [ctypes.c_float, ctypes.c_void_p]
+    assert set(ops._ROUTE_CODE) == {"fma", "mma"}

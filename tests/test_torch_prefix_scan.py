@@ -3,6 +3,8 @@ interpret mode) on the shapes and types of ``test_kernels.py``, the int32
 property test, and the wrapper's device rules.  The CUDA kernel itself is
 held to the plain version on the card (``test_torch_cuda.py``,
 ``chip_smoke.py``)."""
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +17,7 @@ except ImportError:                     # optional dep: deterministic fallback
     from _hypothesis_fallback import given, settings, st
 
 from repro.kernels.prefix_scan.ops import prefix_scan as jax_prefix_scan
-from repro_torch.kernels.prefix_scan import ops, prefix_scan
+from repro_torch.kernels.prefix_scan import build, ops, prefix_scan
 from repro_torch.kernels.prefix_scan.ref import prefix_scan_plain
 
 # int32 is exact; fp32 sums differ in order only (1e-3 at |sums| of a few
@@ -87,3 +89,41 @@ def test_device_rules():
         prefix_scan(x.to("meta"))
     with pytest.raises(ValueError, match="rank"):
         prefix_scan(torch.tensor(1.0))
+
+
+@pytest.mark.parametrize("rows,n,plan", [
+    (1, 1, (128, 8, 1, 0)),
+    (4, 1024, (128, 8, 1, 0)),            # kernel_bench's small case
+    (1, 1025, (512, 8, 1, 0)),
+    (4096, 4096, (512, 8, 1, 0)),         # one tile a row: no scratch
+    (2, 4097, (512, 16, 1, 0)),
+    (8, 8192, (512, 16, 1, 0)),
+    (8, 8193, (512, 16, 2, 17)),
+    (3, (1 << 20) + 13, (512, 16, 129, 388)),
+    (4, 1 << 22, (512, 16, 512, 2049)),
+    (1, 1 << 24, (512, 16, 2048, 2049)),  # 16 KB of status words
+])
+def test_scan_plan(rows, n, plan):
+    assert tuple(ops.scan_plan(rows, n)) == plan
+
+
+@given(st.integers(1, 64), st.integers(1, 1 << 21))
+@settings(max_examples=40, deadline=None)
+def test_scan_scratch_only_for_rows_of_many_tiles(rows, n):
+    """Tiles cover a row exactly (the last one ragged); the look-back's
+    scratch is one word a tile plus the counter, and none for one tile."""
+    p = ops.scan_plan(rows, n)
+    tile = p.block * p.items
+    assert (p.tiles_per_row - 1) * tile < n <= p.tiles_per_row * tile
+    if p.tiles_per_row == 1:
+        assert p.scratch_words == 0
+    else:
+        assert p.scratch_words == rows * p.tiles_per_row + 1
+
+
+def test_c_signature_passes_tile_and_scratch():
+    argtypes, restype = build.LIBRARY.signatures["prefix_scan_fwd"]
+    assert restype is ctypes.c_int
+    assert argtypes == [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                        ctypes.c_int, ctypes.c_long, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
