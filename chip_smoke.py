@@ -14,28 +14,36 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
 3. kernels: each hand-written kernel against its plain PyTorch version at
    the main paths' shapes, within the stated tolerances; the kernel's, the
    plain version's and the library yardstick's times (CUDA events, median
-   over launches, L2 flushed before each), and the bound; for flash
-   attention and the scan also the kernel's and the yardstick's device time
-   (torch.profiler: the kernels a call launches, without the host's gaps).
+   over launches, L2 flushed before each), and the bound; the kernel's
+   device time, and the yardstick's where there is one (torch.profiler: the
+   kernels a call launches, without the host's gaps).
    - flash attention at qwen2-1.5b's heads (12/2): prefill and decode,
      bf16 and fp32, a window with a bottom-right q_offset, a kv_valid = 0
      row; at Mixtral-8x22B's heads (48/8): a 512-token prefill with its
      4096 window and a decode over the 1024-slot paged view, mixed kv_valid;
+     then the split route's edges (T not a multiple of the chunk, T under
+     one chunk, kv_valid 0, 1 and T in one batch, S = 2..4 causal with a
+     q_offset, a window that empties the early chunks, g = 1, 6, 8, fp32);
      each row names the kernel that ran (``mma``: bf16 prefill on the
-     tensor cores; ``fma``: decode and fp32 on the CUDA cores), and the
-     bf16 prefill rows add the kernel's and the plain version's error
-     against attention in fp64 on a few heads; then a latency probe of the
-     mma kernel (one kv head a query head, 64 rows, 1024 columns) at one
-     CTA, one CTA an SM and two;
+     tensor cores; ``fma``: fp32 prefill on the CUDA cores; ``split``:
+     decode, S <= 4, split-KV with GQA packing, and its plan), is run twice
+     for the same bits, and adds the kernel's and the plain version's error
+     against attention in fp64 (bf16 prefill: a few heads; every split
+     row: every batch row and head, held row by row to twice the plain
+     version's error plus FP64_ULPS ulps at the row's scale); then
+     a latency probe of the mma kernel (one kv head a query head, 64 rows,
+     1024 columns) at one CTA, one CTA an SM and two;
    - grouped SwiGLU at Mixtral-8x22B's widths: decode (C = 8, the load of a
      real routing of 8 tokens), prefill at C = 512 and C = 1024 (real
      routings, ~128 and ~256 rows per expert), an empty expert (exact
-     zeros), a small fp32 case; kernel and plain version each also against
-     the function computed in fp64 on a few rows per expert;
+     zeros), a small fp32 case, decode at C = 16, loads of 0, 1 and C rows,
+     and D, F multiples of 8 but not 16 at a small shape; kernel and plain
+     version each also against the function computed in fp64 on a few rows
+     per expert; device times of the kernel and of cuBLAS bmm;
    - WKV-6 at rwkv6-3b's heads (H = 40, N = 64): the bf16 prefill at
      T = 1024, a ragged T = 77 with a non-zero s0, fp32 at B = 2, T = 256;
      kernel and plain version each also against the recurrence in fp64 on
-     a few heads;
+     a few heads; the kernel's device time;
    - the prefix scan: kernel_bench's (4, 1024) and (8, 8192), R = N = 4096
      in fp32, int32 (exact) and bf16 (one tile a row), and rows that the
      look-back chains: four of 2^22, one of 2^20 + 13 (ragged), one of 2^24
@@ -67,7 +75,11 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    its plain version.
 
 Every kernel launch of a path is counted by its wrapper, with the counts
-set to 0 just before the path and read just after.
+set to 0 just before the path and read just after.  ``launches`` counts
+wrapper calls that launched the kernel route: a flash decode (the split
+pass and, with several splits, the combine pass) and a grouped SwiGLU (its
+two phases) each count once.  ``kernel_launches`` counts the kernels those
+calls launched.
 
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -115,6 +127,12 @@ from repro_torch.serving import ServingEngine  # noqa: E402
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+#: a split-decode row's allowance against fp64, beyond twice the plain
+#: version's error: ulps of the dtype at the row's largest |value|.  In
+#: bf16 both round the output (half an ulp) and little else shows; in fp32
+#: the T-term sums and exps leave both 6-22 ulps from fp64 (H100 80GB HBM3)
+#: and another summation order may differ by that much
+FP64_ULPS = {torch.bfloat16: 1, torch.float32: 16}
 KERNEL = dict(name="flash_attention", route="cuda",
               source="src/repro_torch/kernels/flash_attention/csrc/"
                      "flash_attention.cu",
@@ -129,7 +147,9 @@ SCAN_KERNEL = dict(name="prefix_scan", route="cuda",
                    source="src/repro_torch/kernels/prefix_scan/csrc/"
                           "prefix_scan.cu",
                    replaces="src/repro/kernels/prefix_scan/kernel.py:46")
-#: each kernel's launch counter (a plain integer on its wrapper)
+#: each kernel's launch counters (plain integers on its wrapper): calls
+#: that launched it, and, where a call launches more than one kernel, the
+#: kernels launched
 COUNTERS = {"flash_attention": ops.flash_attention,
             "grouped_swiglu": gmm_ops.grouped_swiglu,
             "wkv6": wkv_ops.wkv6,
@@ -142,6 +162,20 @@ SCAN_PATH = "prefix-scan benchmarks"
 #: the WKV routes (kernel and chunked scan) in fp32 at full depth: the same
 #: fp32 products summed in other orders, ~1e-4 apart
 ROUTE_TOL_FP32 = 1e-3
+
+
+def _zero_counts() -> None:
+    for counter in COUNTERS.values():
+        counter.launches = 0
+        if hasattr(counter, "kernel_launches"):
+            counter.kernel_launches = 0
+
+
+def _kernel_launches() -> dict:
+    """The kernels each wrapper launched: its own count where a call can
+    launch more than one, else its count of calls."""
+    return {k: getattr(c, "kernel_launches", c.launches)
+            for k, c in COUNTERS.items()}
 
 
 def phase_device() -> str:
@@ -248,20 +282,42 @@ def _bound(q, k, causal, window, q_offset, kv_valid):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _attn_fp64(q, k, v, kv_valid, causal, window, q_offset, heads=4):
-    """Attention in fp64 for batch row 0 and the first ``heads`` query
-    heads (a fully masked row is 0, as in the kernel): [S, heads, d]."""
+def _attn_fp64(q, k, v, kv_valid, causal, window, q_offset, batch=1,
+               heads=4):
+    """Attention in fp64 for the first ``batch`` batch rows and ``heads``
+    query heads (a fully masked row is 0, as in the kernel):
+    [batch, S, heads, d]."""
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
-    vis = _visible(1, s, t, causal, window, q_offset,
-                   None if kv_valid is None else kv_valid[:1])[0]
+    vis = _visible(b, s, t, causal, window, q_offset, kv_valid)
+    kv = torch.arange(heads, device="cuda") // (h // hkv)
     outs = []
-    for hh in range(heads):
-        kv = hh // (h // hkv)
-        logits = (q[0, :, hh].double() @ k[0, :, kv].double().T) * d ** -0.5
-        p = torch.softmax(logits.masked_fill(~vis, float("-inf")), -1)
-        outs.append(torch.nan_to_num(p) @ v[0, :, kv].double())
-    return torch.stack(outs, 1)
+    for bb in range(batch):
+        qd = q[bb, :, :heads].double().transpose(0, 1)      # heads, S, d
+        kd, vd = (x[bb][:, kv].double().transpose(0, 1) for x in (k, v))
+        logits = qd @ kd.transpose(1, 2) * d ** -0.5        # heads, S, T
+        p = torch.softmax(logits.masked_fill(~vis[bb], float("-inf")), -1)
+        outs.append((torch.nan_to_num(p) @ vd).transpose(0, 1))
+    return torch.stack(outs)
+
+
+def _row_errs(got, want, exact):
+    """Each output row's (batch, query, head) max error against fp64, for
+    the kernel and for the plain version, and the kernel's largest error
+    over its row's allowance: twice the plain version's error plus
+    FP64_ULPS ulps of the dtype at the row's largest |value|.  Long rows
+    average to values of ~sqrt(e / T), under the absolute tolerance: a
+    fault that biases them shows here.  A row over 1 fails the case."""
+    ek = (got.double() - exact).abs().amax(-1)
+    ep = (want.double() - exact).abs().amax(-1)
+    scale = exact.abs().amax(-1)
+    ulp = torch.ldexp(torch.full_like(scale, torch.finfo(got.dtype).eps
+                                      * FP64_ULPS[got.dtype]),
+                      torch.frexp(scale).exponent - 1)
+    allow = 2 * ep + torch.where(scale > 0, ulp, 0)
+    over = torch.where(allow > 0, ek / allow,
+                       torch.where(ek > 0, float("inf"), 0.0))
+    return ek.max().item(), ep.max().item(), over.max().item()
 
 
 def phase_flash_probe() -> None:
@@ -306,6 +362,26 @@ def phase_kernels(seed: int) -> list:
          True, 4096, 0, None),
         (mixtral, "mixtral_decode", torch.bfloat16, 8, 1, 1024, 48, 8, False,
          None, 0, [65, 1024, 130, 513, 1, 300, 700, 529]),
+        # the split route's edges: T not a multiple of the chunk with
+        # kv_valid 0, 1 and T in one batch; T under one chunk; S = 2..4
+        # with causal and a bottom-right q_offset; a window that leaves the
+        # early chunks empty; g = H / Hkv of 1, 6 and 8
+        (qwen, "split_ragged_T_kv_valid_0_1_T", torch.bfloat16, 4, 1, 1000,
+         12, 2, False, None, 0, [0, 1, 1000, 517]),
+        (qwen, "split_T_under_one_chunk", torch.bfloat16, 8, 1, 50, 12, 2,
+         False, None, 0, [50, 1, 0, 25, 50, 49, 2, 33]),
+        (qwen, "split_S2_causal", torch.bfloat16, 8, 2, 2048, 12, 2, True,
+         None, 2046, [2048, 1024, 2, 1, 700, 2048, 3, 1500]),
+        (mixtral, "split_S4_causal", torch.bfloat16, 4, 4, 1024, 48, 8, True,
+         None, 1020, [1024, 4, 513, 900]),
+        (qwen, "split_S3_g8", torch.bfloat16, 4, 3, 1024, 64, 8, True, None,
+         1021, None),
+        (qwen, "split_g1", torch.bfloat16, 8, 1, 2048, 8, 8, False, None, 0,
+         [1, 2048, 7, 300, 1024, 2047, 64, 1500]),
+        (qwen, "split_window", torch.bfloat16, 8, 1, 2048, 12, 2, False, 300,
+         2047, None),
+        (qwen, "split_S4_causal", torch.float32, 4, 4, 1024, 12, 2, True,
+         None, 1020, [1024, 4, 513, 0]),
     ]
     d = 128
     rows = []
@@ -326,15 +402,30 @@ def phase_kernels(seed: int) -> list:
             raise AssertionError(f"flash_attention {name} {dt}: max error "
                                  f"{err} > {TOL[dt]}")
         route = ops.kernel_route(dt, s)
-        if route != ("mma" if dt == torch.bfloat16 and s > 4 else "fma"):
+        if route != ("split" if s <= 4 else
+                     "mma" if dt == torch.bfloat16 else "fma"):
             raise AssertionError(f"flash_attention {name}: route {route}")
-        err64 = plain_err64 = None
+        # no atomics and a plan fixed by the shapes: the same bits again
+        if not torch.equal(got, ops.flash_attention(q, k, v, kv_valid, **kw)):
+            raise AssertionError(f"flash_attention {name}: two calls differ")
+        plan = ops.decode_plan(b, hkv, t) if route == "split" else None
+        err64 = plain_err64 = row_over = None
         if route == "mma":
             exact = _attn_fp64(q, k, v, kv_valid, causal, window, q_offset)
             err64, plain_err64 = (
-                (out[0, :, :exact.shape[1]].double() - exact).abs().max()
+                (out[:1, :, :exact.shape[2]].double() - exact).abs().max()
                 .item() for out in (got, want))
             del exact
+        elif route == "split":
+            exact = _attn_fp64(q, k, v, kv_valid, causal, window, q_offset,
+                               batch=b, heads=h)
+            err64, plain_err64, row_over = _row_errs(got, want, exact)
+            del exact
+            if not row_over <= 1:
+                raise AssertionError(
+                    f"flash_attention {name} {dt}: a row's error against "
+                    f"fp64 is {row_over} times its allowance (kernel "
+                    f"{err64}, plain {plain_err64})")
         if valid is not None:
             dead = kv_valid == 0
             if dead.any() and not torch.all(got[dead] == 0):
@@ -357,8 +448,11 @@ def phase_kernels(seed: int) -> list:
             KERNEL, case=f"{name}/{str(dt).split('.')[1]}", path=path,
             shape=dict(B=b, S=s, T=t, H=h, Hkv=hkv, d=d, window=window,
                        q_offset=q_offset, kv_valid=valid),
-            kernel_route=route, max_abs_err=err, max_err=err, tol=TOL[dt],
-            err_fp64=err64, plain_err_fp64=plain_err64, ms=ms, kernel_ms=ms,
+            kernel_route=route,
+            decode_plan=None if plan is None else plan._asdict(),
+            max_abs_err=err, max_err=err, tol=TOL[dt], err_fp64=err64,
+            plain_err_fp64=plain_err64, fp64_row_over_allowance=row_over,
+            ms=ms, kernel_ms=ms,
             plain_ms=_time_ms(lambda: flash_attention_plain(
                 q, k, v, kv_valid, **kw)),
             library_ms=_time_ms(sdpa),
@@ -366,9 +460,12 @@ def phase_kernels(seed: int) -> list:
                 q, k, v, kv_valid, **kw)),
             library_device_ms=_device_ms(sdpa),
             bound_ms=bound_ms, bound_by=bound_by))
-        print(f"kernel {rows[-1]['case']} ({path}, H={h}/{hkv}, {route}): "
+        print(f"kernel {rows[-1]['case']} ({path}, B={b} S={s} T={t} "
+              f"H={h}/{hkv}, {route}"
+              f"{'' if plan is None else f', {plan.splits} x {plan.chunk}'}): "
               f"max_err {err} (tol {TOL[dt]}; against fp64: kernel {err64}, "
-              f"plain {plain_err64}), {ms} ms, plain "
+              f"plain {plain_err64}, worst row {row_over} of its "
+              f"allowance), {ms} ms, plain "
               f"{rows[-1]['plain_ms']} ms, sdpa {rows[-1]['library_ms']} ms; "
               f"device {rows[-1]['device_ms']} ms, sdpa "
               f"{rows[-1]['library_device_ms']} ms; bound {bound_ms} ms "
@@ -448,6 +545,20 @@ def phase_gmm_kernel(seed: int) -> list:
     small_w = weights(4, 256, 512, torch.float32)
     small_x, small_load = _routed(g, 64, 4, 256, torch.float32)
     cases.append(("small", small_x, small_load, small_w))
+    # the tensor-core path's edges: a decode slab of 16 rows (a real routing
+    # of 16 tokens); loads of 0, 1 and C rows; D and F multiples of 8 but not
+    # of 16 (the k edge inside a k-step), on the prefill tile
+    cases.append(("decode_C16", *_routed(g, 16, e, d, torch.bfloat16), w))
+    edge_load = torch.tensor([0, 1, 16, 0, 16, 1, 5, 16], dtype=torch.int32,
+                             device="cuda")
+    edge_x = torch.randn(e, 16, d, generator=g, device="cuda").bfloat16()
+    edge_x[torch.arange(16, device="cuda")[None, :] >= edge_load[:, None]] = 0
+    cases.append(("load_0_1_C", edge_x, edge_load, w))
+    odd_load = torch.tensor([0, 1, 40], dtype=torch.int32, device="cuda")
+    odd_x = torch.randn(3, 40, 264, generator=g, device="cuda").bfloat16()
+    odd_x[torch.arange(40, device="cuda")[None, :] >= odd_load[:, None]] = 0
+    cases.append(("D264_F520", odd_x, odd_load,
+                  weights(3, 264, 520, torch.bfloat16)))
     rows = []
     for name, x, load, (wg, wu, wd) in cases:
         got = gmm_ops.grouped_swiglu(x, wg, wu, wd, load)
@@ -481,14 +592,21 @@ def phase_gmm_kernel(seed: int) -> list:
                                                            load)),
             library_ms=_time_ms(lambda: _gmm_library(x, wg, wu, wd)),
             library="torch.bmm x3 (cuBLAS) + silu*mul cast",
+            device_ms=_device_ms(lambda: gmm_ops.grouped_swiglu(
+                x, wg, wu, wd, load), reps=5),
+            library_device_ms=_device_ms(
+                lambda: _gmm_library(x, wg, wu, wd), reps=5),
             bound_ms=bound_ms, bound_by=bound_by))
-        print(f"kernel grouped_swiglu {rows[-1]['case']}: max_err {err} "
+        print(f"kernel grouped_swiglu {rows[-1]['case']} E={x.shape[0]} "
+              f"C={x.shape[1]} D={x.shape[2]} F={wg.shape[2]}: max_err {err} "
               f"(tol {tol}; against fp64: kernel {err64}, plain "
               f"{plain_err64}; bitwise equal {rows[-1]['bitwise_equal']}), "
               f"{ms} ms, plain {rows[-1]['plain_ms']} ms, "
-              f"bmm {rows[-1]['library_ms']} ms, bound {bound_ms} ms "
+              f"bmm {rows[-1]['library_ms']} ms; device "
+              f"{rows[-1]['device_ms']} ms, bmm "
+              f"{rows[-1]['library_device_ms']} ms; bound {bound_ms} ms "
               f"({bound_by}), load {load.tolist()}")
-    del cases, w, small_w
+    del cases, w, small_w, edge_x, odd_x
     gc.collect()
     torch.cuda.empty_cache()
     return rows
@@ -571,12 +689,14 @@ def phase_wkv6_kernel(seed: int) -> list:
                               warmup=1),
             library_ms=None,
             library="none: no single PyTorch call computes WKV-6",
+            device_ms=_device_ms(lambda: wkv_ops.wkv6(r, k, v, w, u, s0)),
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations"))
         print(f"kernel wkv6 {rows[-1]['case']} B={b} T={t}: y err {err}, "
               f"s_end err {s_err} (rtol {rtol}; against fp64 on 4 heads: "
               f"kernel {errs64[0]} / {serrs64[0]}, plain {errs64[1]} / "
               f"{serrs64[1]}), {ms} ms, plain {rows[-1]['plain_ms']} ms, "
+              f"device {rows[-1]['device_ms']} ms, "
               f"bound {rows[-1]['bound_ms']} ms ({rows[-1]['bound_by']})")
     return rows
 
@@ -675,8 +795,7 @@ def phase_scan_path(seed: int) -> dict:
               torch.randn(8, 8192, generator=g, device="cuda"),
               torch.arange(1 << 14, dtype=torch.int32,
                            device="cuda").reshape(4, -1)]
-    for counter in COUNTERS.values():
-        counter.launches = 0
+    _zero_counts()
     outs = [scan_ops.prefix_scan(x) for x in inputs]
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in COUNTERS.items()}
@@ -704,14 +823,17 @@ def _prompts(rng, n, vocab, longest=1024):
 
 class _Phase:
     """Wraps an engine call: device-synchronized seconds, calls, each
-    kernel's launches inside it, and a finite-logits check."""
+    kernel's launches (wrapper calls and kernels) inside it, and a
+    finite-logits check."""
 
     def __init__(self, fn):
         self.fn, self.seconds, self.calls = fn, 0.0, 0
         self.launches = dict.fromkeys(COUNTERS, 0)
+        self.kernel_launches = dict.fromkeys(COUNTERS, 0)
 
     def __call__(self, *args):
         n0 = {k: c.launches for k, c in COUNTERS.items()}
+        k0 = _kernel_launches()
         t0 = time.perf_counter()
         logits, cache = self.fn(*args)
         if not torch.isfinite(logits).all():
@@ -719,8 +841,10 @@ class _Phase:
         torch.cuda.synchronize()
         self.seconds += time.perf_counter() - t0
         self.calls += 1
+        k1 = _kernel_launches()
         for k, c in COUNTERS.items():
             self.launches[k] += c.launches - n0[k]
+            self.kernel_launches[k] += k1[k] - k0[k]
         return logits, cache
 
 
@@ -737,13 +861,13 @@ def phase_main_path(model, params, prompts, *, s_max, max_new, kv_mode,
             for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for counter in COUNTERS.values():
-        counter.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     outs = eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: c.launches for k, c in COUNTERS.items()}
+    kernel_launches = _kernel_launches()
     if not all(r.state.name == "DONE" for r in reqs):
         raise AssertionError("not every request finished")
     if eng.paged:
@@ -767,9 +891,11 @@ def phase_main_path(model, params, prompts, *, s_max, max_new, kv_mode,
                  prefill_calls=prefill.calls,
                  decode_steps=decode.calls,
                  decode_step_ms=decode.seconds / decode.calls * 1e3,
-                 launches=launches,
-                 launches_prefill=prefill.launches,
+                 launches=launches, launches_prefill=prefill.launches,
                  launches_decode=decode.launches,
+                 kernel_launches=kernel_launches,
+                 kernel_launches_prefill=prefill.kernel_launches,
+                 kernel_launches_decode=decode.kernel_launches,
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                  prompt_tokens=int(sum(len(p) for p in prompts)))
     print("main path: " + json.dumps(stats))

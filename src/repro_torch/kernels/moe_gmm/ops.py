@@ -4,7 +4,9 @@
 On a CUDA tensor ``grouped_swiglu`` launches the hand-written kernel
 (``csrc/moe_gmm.cu``, two phases) or raises; on a CPU tensor it runs the
 plain version (``ref.grouped_swiglu_plain``).  ``grouped_swiglu.launches``
-counts the calls that launched the kernel.
+counts the calls that launched the kernel and
+``grouped_swiglu.kernel_launches`` the kernels they launched (two a call,
+one a phase).
 
 The signature is that of ``repro/kernels/moe_gmm/ops.py`` without its TPU
 tiling knobs (``bc``, ``bf``, ``interpret``), plus the dispatch plan's
@@ -92,7 +94,9 @@ def grouped_swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
         raise RuntimeError("grouped_swiglu launch failed: "
                            + lib.grouped_swiglu_error_string(code).decode())
     grouped_swiglu.launches += 1
+    grouped_swiglu.kernel_launches += 2
     return y
 
 
 grouped_swiglu.launches = 0
+grouped_swiglu.kernel_launches = 0

@@ -1,6 +1,9 @@
 """The kernels' build helper: a library's name carries the hash of every
 file in its source's directory, so an edited header is rebuilt too.  Runs
 on the CPU (nothing is compiled)."""
+import ctypes
+import re
+
 import pytest
 
 from repro_torch.kernels._build import CudaLibrary
@@ -45,3 +48,32 @@ def test_each_kernel_hashes_its_csrc(build):
     assert lib.source.parent.name == "csrc" and lib.source.exists()
     d = lib.digest()
     assert len(d) == 16 and int(d, 16) >= 0
+
+
+_C_TYPES = {"int": ctypes.c_int, "long": ctypes.c_long,
+            "float": ctypes.c_float, "void*": ctypes.c_void_p,
+            "constvoid*": ctypes.c_void_p}
+
+
+def _c_params(source: str, fn: str) -> list:
+    """The parameter types of ``fn`` as its ``extern "C"`` definition in
+    ``source`` declares them (whitespace dropped: "constvoid*", "int")."""
+    m = re.search(rf"\b{fn}\s*\(([^)]*)\)", source)
+    assert m, f"{fn} not defined in the source"
+    types = []
+    for param in m.group(1).split(","):
+        words = param.replace("*", " * ").split()
+        types.append("".join(words[:-1]))       # drop the parameter's name
+    return types
+
+
+@pytest.mark.parametrize("build", [flash_build, gmm_build, scan_build,
+                                   wkv_build])
+def test_c_signatures_match_the_source(build):
+    """Every function a library declares to ctypes has, argument by
+    argument, the C types of its definition in the .cu file: a pointer
+    declared c_int would be cut to 32 bits, a missing argument would shift
+    every later one."""
+    source = build.LIBRARY.source.read_text()
+    for fn, (argtypes, _) in build.LIBRARY.signatures.items():
+        assert argtypes == [_C_TYPES[t] for t in _c_params(source, fn)], fn

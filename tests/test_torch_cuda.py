@@ -247,3 +247,174 @@ def test_prefix_scan_int32_wraps_across_tiles_on_card():
     x[1] *= -1
     assert scan_ops.scan_plan(2, x.shape[1]).tiles_per_row == 4
     assert torch.equal(scan_ops.prefix_scan(x), prefix_scan_plain(x))
+
+
+def _split_case(b, s, t, h, hkv, d, dtype, seed):
+    q, k, v = (torch.from_numpy(x).to("cuda", getattr(torch, dtype))
+               for x in _inputs(b, s, t, h, hkv, d, seed=seed))
+    return q, k, v
+
+
+def _attn_fp64(q, k, v, kv_valid, causal, window, q_offset):
+    """Attention in fp64 with the kernel's mask (a fully masked row is 0):
+    [B, S, H, d]."""
+    b, s, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    i = q_offset + torch.arange(s, device=q.device)[:, None]
+    j = torch.arange(t, device=q.device)[None, :]
+    vis = torch.ones(b, 1, 1, s, t, dtype=torch.bool, device=q.device)
+    if causal:
+        vis = vis & (j <= i)
+    if window is not None:
+        vis = vis & (i - j < window)
+    if kv_valid is not None:
+        vis = vis & (j < kv_valid.reshape(b, 1, 1, 1, 1))
+    qd = q.double().reshape(b, s, hkv, h // hkv, d).permute(0, 2, 3, 1, 4)
+    kd, vd = (x.double().permute(0, 2, 1, 3) for x in (k, v))
+    logits = torch.einsum("bkgsd,bktd->bkgst", qd, kd) * d ** -0.5
+    p = torch.nan_to_num(torch.softmax(
+        logits.masked_fill(~vis, float("-inf")), -1))
+    out = torch.einsum("bkgst,bktd->bkgsd", p, vd)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+
+
+#: ulps of the dtype at a row's largest |value| that a split-decode row may
+#: lie from fp64 beyond twice the plain version's error: bf16 output
+#: rounding hides the rest; in fp32 both versions' T-term sums and exps
+#: leave them 6-22 ulps from fp64, in orders that differ
+FP64_ULPS = {torch.bfloat16: 1, torch.float32: 16}
+
+
+def _rows_within_fp64_allowance(got, want, exact):
+    """Each output row's (batch, query, head) error against fp64 is at most
+    twice the plain version's plus FP64_ULPS ulps of the dtype at the row's
+    largest |value|.  Long rows average to values of ~sqrt(e / T), under
+    the absolute tolerance: a fault that biases them shows here."""
+    ek = (got.double() - exact).abs().amax(-1)
+    ep = (want.double() - exact).abs().amax(-1)
+    scale = exact.abs().amax(-1)
+    ulp = torch.ldexp(torch.full_like(scale, torch.finfo(got.dtype).eps
+                                      * FP64_ULPS[got.dtype]),
+                      torch.frexp(scale).exponent - 1)
+    return bool(torch.all(ek <= 2 * ep + torch.where(scale > 0, ulp, 0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("b,s,t,h,hkv,d,causal,window,q_offset,kv_valid", [
+    # T not a multiple of the chunk; kv_valid of 0, 1 and T in one batch
+    (4, 1, 1000, 12, 2, 128, False, None, 0, [0, 1, 1000, 517]),
+    (1, 1, 50, 4, 4, 64, False, None, 0, None),        # T under one chunk
+    (2, 2, 700, 12, 2, 128, True, None, 698, [700, 350]),  # S = 2, causal
+    (2, 3, 300, 8, 8, 32, True, None, 297, None),      # S = 3, g = 1
+    (2, 4, 513, 64, 8, 128, True, None, 509, [513, 4]),  # S = 4, g = 8
+    (2, 4, 256, 64, 4, 64, True, None, 252, None),     # g = 16: 2 CTAs a kv
+    (3, 1, 2048, 12, 2, 128, False, 300, 2047, None),  # window cuts chunks
+    (2, 2, 1024, 48, 8, 128, True, 100, 1022, [1024, 600]),
+    (8, 1, 2048, 12, 2, 128, False, None, 0,
+     [0, 2048, 7, 300, 0, 2047, 64, 1500]),            # qwen2-1.5b decode
+    (8, 1, 1024, 48, 8, 128, False, None, 0,
+     [65, 1024, 130, 513, 1, 300, 700, 529]),          # Mixtral decode
+])
+def test_flash_split_decode_on_card(b, s, t, h, hkv, d, causal, window,
+                                    q_offset, kv_valid, dtype, tol):
+    """The decode route (split-KV, GQA packing) against the plain version,
+    and row by row against fp64 attention; a kv_valid = 0 row is all zeros,
+    and two calls give the same bits.  A call counts once, and launches
+    the combine pass too when its plan has several splits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    q, k, v = _split_case(b, s, t, h, hkv, d, dtype, seed=s + t)
+    assert ops.kernel_route(q.dtype, s) == "split"
+    valid = None if kv_valid is None else torch.tensor(
+        kv_valid, dtype=torch.int32, device="cuda")
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = (ops.flash_attention.launches,
+              ops.flash_attention.kernel_launches)
+    got = ops.flash_attention(q, k, v, valid, **kw)
+    torch.cuda.synchronize()
+    kernels = 2 if ops.decode_plan(b, hkv, t).splits > 1 else 1
+    assert (ops.flash_attention.launches,
+            ops.flash_attention.kernel_launches) == (before[0] + 1,
+                                                     before[1] + kernels)
+    want = flash_attention_plain(q, k, v, valid, **kw)
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert _rows_within_fp64_allowance(
+        got, want, _attn_fp64(q, k, v, valid, **kw))
+    assert torch.equal(got, ops.flash_attention(q, k, v, valid, **kw))
+    if valid is not None:
+        assert torch.all(got[valid == 0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_split_row_ignores_other_rows_on_card(dtype):
+    """A row's bits depend only on its own kv_valid, T and the plan: other
+    rows' kv_valid and values change nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    q, k, v = _split_case(4, 1, 1536, 12, 2, 128, dtype, seed=7)
+    valid = torch.tensor([900, 1536, 3, 0], dtype=torch.int32, device="cuda")
+    got = ops.flash_attention(q, k, v, valid, causal=False)
+    other = torch.tensor([900, 17, 1536, 1200], dtype=torch.int32,
+                         device="cuda")
+    k2, v2 = k.clone(), v.clone()
+    k2[1:], v2[1:] = k2[1:].flip(1), -v2[1:]
+    again = ops.flash_attention(q, k2, v2, other, causal=False)
+    assert torch.equal(got[0], again[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,d,f,load", [
+    (8, 16, 6144, 16384, [16, 0, 1, 5, 16, 2, 9, 3]),  # decode, C = 16
+    (3, 16, 264, 520, [0, 1, 16]),        # D, F multiples of 8, not of 16
+    (3, 200, 264, 520, [0, 1, 200]),      # ... and on the prefill tile
+    (2, 9, 24, 40, [9, 4]),
+])
+def test_grouped_swiglu_mma_on_card(e, c, d, f, load):
+    """The bf16 tensor-core path against the plain version within 3e-2;
+    rows beyond each load exactly 0; two calls give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(e + c + d + f)
+    x = torch.randn(e, c, d, generator=g, device="cuda").bfloat16()
+    w = [(torch.randn(shape, generator=g, device="cuda") / shape[1] ** 0.5
+          ).bfloat16() for shape in ((e, d, f), (e, d, f), (e, f, d))]
+    ld = torch.tensor(load, dtype=torch.int32, device="cuda")
+    dead = torch.arange(c, device="cuda")[None, :] >= ld[:, None]
+    x[dead] = 0
+    kernels = gmm_ops.grouped_swiglu.kernel_launches
+    y = gmm_ops.grouped_swiglu(x, *w, ld)
+    assert gmm_ops.grouped_swiglu.kernel_launches == kernels + 2
+    want = grouped_swiglu_plain(x, *w)
+    assert torch.isfinite(y).all()
+    assert (y.float() - want.float()).abs().max().item() <= 3e-2
+    assert torch.all(y[dead] == 0)
+    assert torch.equal(y, gmm_ops.grouped_swiglu(x, *w, ld))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [16, 300])
+def test_grouped_swiglu_row_bits_on_card(c):
+    """A row's bits do not depend on its place in the slab or on the other
+    experts' loads (one fixed k order, no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    e, d, f = 4, 512, 1024
+    g = torch.Generator(device="cuda").manual_seed(c)
+    x = torch.randn(e, c, d, generator=g, device="cuda").bfloat16()
+    w = [(torch.randn(shape, generator=g, device="cuda") / shape[1] ** 0.5
+          ).bfloat16() for shape in ((e, d, f), (e, d, f), (e, f, d))]
+    full = torch.full((e,), c, dtype=torch.int32, device="cuda")
+    y = gmm_ops.grouped_swiglu(x, *w, full)
+    perm = torch.randperm(c, generator=g, device="cuda")
+    moved = gmm_ops.grouped_swiglu(x[:, perm].contiguous(), *w, full)
+    assert torch.equal(moved, y[:, perm])
+    # expert 1 unchanged while the others' loads (and rows) change
+    other = torch.tensor([0, c, 3, 1], dtype=torch.int32, device="cuda")
+    x2 = x.clone()
+    x2[torch.arange(c, device="cuda")[None, :] >= other[:, None]] = 0
+    y2 = gmm_ops.grouped_swiglu(x2, *w, other)
+    assert torch.equal(y2[1], y[1])

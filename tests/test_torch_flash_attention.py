@@ -94,9 +94,11 @@ def test_plain_fully_masked_row_is_zero():
 
 def test_wrapper_counts_no_launch_on_cpu():
     q, k, v = (torch.from_numpy(x) for x in _inputs(1, 8, 8, 2, 2, 32))
-    before = ops.flash_attention.launches
+    before = (ops.flash_attention.launches,
+              ops.flash_attention.kernel_launches)
     out = ops.flash_attention(q, k, v)
-    assert ops.flash_attention.launches == before
+    assert (ops.flash_attention.launches,
+            ops.flash_attention.kernel_launches) == before
     torch.testing.assert_close(out, flash_attention_plain(q, k, v),
                                rtol=0, atol=0)
 
@@ -119,24 +121,55 @@ def test_wrapper_never_falls_back_off_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("dtype,s,route", [
-    (torch.bfloat16, 1, "fma"), (torch.bfloat16, 4, "fma"),
+    (torch.bfloat16, 1, "split"), (torch.bfloat16, 4, "split"),
     (torch.bfloat16, 5, "mma"), (torch.bfloat16, 77, "mma"),
-    (torch.bfloat16, 1024, "mma"), (torch.float32, 1, "fma"),
+    (torch.bfloat16, 1024, "mma"), (torch.float32, 1, "split"),
+    (torch.float32, 4, "split"), (torch.float32, 5, "fma"),
     (torch.float32, 1024, "fma"),
 ])
 def test_kernel_route(dtype, s, route):
-    """bf16 prefill (S > 4) takes the tensor-core kernel; decode and fp32
-    (TF32 stays off) the CUDA-core one."""
+    """Decode (S <= 4) takes the split-KV kernel in either dtype; bf16
+    prefill the tensor-core kernel; fp32 prefill (TF32 stays off) the
+    CUDA-core one."""
     assert ops.kernel_route(dtype, s) == route
 
 
 def test_c_signature_passes_the_route():
-    """The route goes to C as an int before the pointers; every pointer and
-    the stream are c_void_p (a c_int would cut them to 32 bits)."""
+    """The route goes to C as an int before the pointers, the decode plan
+    (splits, chunk) as ints before the scale; every pointer (the scratch
+    too) and the stream are c_void_p (a c_int would cut them to 32 bits)."""
     argtypes, restype = build.LIBRARY.signatures["flash_attention_fwd"]
-    assert restype is ctypes.c_int and len(argtypes) == 18
+    assert restype is ctypes.c_int and len(argtypes) == 21
     assert argtypes[:3] == [ctypes.c_int] * 3          # dtype, head dim, route
-    assert argtypes[3:8] == [ctypes.c_void_p] * 5      # q k v kv_valid o
-    assert argtypes[8:16] == [ctypes.c_int] * 8
-    assert argtypes[16:] == [ctypes.c_float, ctypes.c_void_p]
-    assert set(ops._ROUTE_CODE) == {"fma", "mma"}
+    assert argtypes[3:9] == [ctypes.c_void_p] * 6  # q k v kv_valid o scratch
+    assert argtypes[9:19] == [ctypes.c_int] * 10
+    assert argtypes[19:] == [ctypes.c_float, ctypes.c_void_p]
+    assert set(ops._ROUTE_CODE) == {"fma", "mma", "split"}
+
+
+@pytest.mark.parametrize("b,hkv,t", [
+    (8, 2, 2048), (8, 8, 1024), (8, 2, 1000), (1, 1, 50), (1, 1, 1),
+    (1, 1, 32768), (3, 5, 4097), (64, 8, 64), (300, 1, 129),
+])
+def test_decode_plan_covers_the_kv_axis(b, hkv, t):
+    """The splits cover [0, T) exactly, each chunk whole tiles, the last
+    non-empty; at least one split, and no more than the CTA target asks;
+    where T allows, at least one CTA an SM (half the target)."""
+    plan = ops.decode_plan(b, hkv, t)
+    want = -(-ops.TARGET_CTAS // (b * hkv))
+    assert 1 <= plan.splits <= want and plan.chunk % ops.KV_TILE == 0
+    assert (plan.splits - 1) * plan.chunk < t <= plan.splits * plan.chunk
+    if t >= ops.KV_TILE * want:
+        assert plan.splits * b * hkv >= ops.TARGET_CTAS // 2
+
+
+def test_decode_plan_at_the_main_paths():
+    """qwen2-1.5b (B = 8, 2 kv heads, T = 2048) and Mixtral-8x22B (B = 8,
+    8 kv heads, the 1024-slot paged view) get 256 CTAs each."""
+    assert ops.decode_plan(8, 2, 2048) == (16, 128)
+    assert ops.decode_plan(8, 8, 1024) == (4, 256)
+
+
+def test_decode_plan_rejects_empty_shapes():
+    with pytest.raises(ValueError):
+        ops.decode_plan(0, 2, 2048)

@@ -63,10 +63,12 @@ def test_device_rules():
     """CPU tensors take the plain version (no launch); other devices raise;
     malformed shapes raise before any device work."""
     x, wg, wu, wd = (torch.from_numpy(a) for a in _inputs(2, 8, 16, 16))
-    before = ops.grouped_swiglu.launches
+    before = (ops.grouped_swiglu.launches,
+              ops.grouped_swiglu.kernel_launches)
     assert torch.equal(grouped_swiglu(x, wg, wu, wd),
                        grouped_swiglu_plain(x, wg, wu, wd))
-    assert ops.grouped_swiglu.launches == before
+    assert (ops.grouped_swiglu.launches,
+            ops.grouped_swiglu.kernel_launches) == before
     meta = [t.to("meta") for t in (x, wg, wu, wd)]
     with pytest.raises(ValueError, match="cuda or cpu"):
         grouped_swiglu(*meta)
@@ -74,3 +76,25 @@ def test_device_rules():
         grouped_swiglu(x, wg, wu, wd[:, :8])
     with pytest.raises(ValueError, match=r"x \[E,C,D\]"):
         grouped_swiglu(x[0], wg, wu, wd)
+
+
+@pytest.mark.parametrize("dtype,d,f,ok", [
+    (torch.bfloat16, 264, 520, True),    # multiples of 8, not of 16
+    (torch.bfloat16, 6144, 16384, True),
+    (torch.bfloat16, 260, 520, False),
+    (torch.bfloat16, 264, 516, False),
+    (torch.float32, 260, 516, True),     # fp32: multiples of 4
+    (torch.float32, 262, 516, False),
+])
+def test_kernel_shape_rule(dtype, d, f, ok):
+    """The kernels take D and F in whole 16-byte vectors (8 bf16 or 4 fp32
+    elements): the tensor-core path masks the k edge inside a k-step, so
+    D and F need not be multiples of 16.  Checked before any launch."""
+    e, c = 2, 16
+    args = [torch.empty(shape, dtype=dtype, device="meta") for shape in
+            ((e, c, d), (e, d, f), (e, d, f), (e, f, d))]
+    if ok:
+        ops._check_cuda(*args, None)
+    else:
+        with pytest.raises(ValueError, match="multiples of"):
+            ops._check_cuda(*args, None)
