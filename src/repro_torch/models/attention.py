@@ -24,9 +24,11 @@ __all__ = ["init_attention", "attention_fwd", "attention_decode", "KVCache",
            "attention_prefill_chunk_paged", "init_kv_cache",
            "init_paged_kv_cache"]
 
-#: sequences at least this long take the reference's chunked online-softmax
-#: path when flash is off; the port has not got it yet
+#: sequences at least this long take the chunked online-softmax path when
+#: flash is off (and the lengths divide into its chunks)
 _CHUNK_THRESHOLD = 8192
+_Q_CHUNK = 1024
+_KV_CHUNK = 2048
 
 
 class KVCache(NamedTuple):
@@ -90,6 +92,50 @@ def _sdpa(q, k, v, mask, scale):
     return out.reshape(b, s, h, hd)
 
 
+def _sdpa_chunked(q, k, v, scale, causal: bool, window: Optional[int]):
+    """The flash-attention algorithm in plain PyTorch: a loop over query
+    chunks of 1024 and key/value chunks of 2048 with a running fp32 (max,
+    denominator, accumulator), so memory is O(S d + chunk^2) instead of
+    O(S T).  Masked logits are -1e30 and P stays fp32, as in the
+    reference's ``_sdpa_chunked``."""
+    b, s, h, hd = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qc, kc = _Q_CHUNK, _KV_CHUNK
+    assert s % qc == 0 and t % kc == 0, (s, t)
+    qf = q.reshape(b, s, hkv, g, hd).float()
+    kf, vf = k.float(), v.float()
+    out = torch.empty(b, s, hkv, g, hd, dtype=torch.float32, device=q.device)
+    for q0 in range(0, s, qc):
+        rows = torch.arange(q0, q0 + qc, device=q.device)[:, None]
+        qblk = qf[:, q0:q0 + qc]                         # [B, qc, hkv, g, hd]
+        acc = torch.zeros(b, hkv, g, qc, hd, dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((b, hkv, g, qc), -1e30, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros(b, hkv, g, qc, dtype=torch.float32, device=q.device)
+        for k0 in range(0, t, kc):
+            cols = torch.arange(k0, k0 + kc, device=q.device)[None, :]
+            valid = torch.ones(qc, kc, dtype=torch.bool, device=q.device)
+            if causal:
+                valid &= cols <= rows
+            if window is not None:
+                valid &= rows - cols < window
+            s_blk = torch.einsum("bqkgd,bckd->bkgqc", qblk,
+                                 kf[:, k0:k0 + kc]) * scale
+            s_blk = s_blk.masked_fill(~valid, -1e30)
+            m_new = torch.maximum(m, s_blk.amax(-1))
+            p = torch.exp(s_blk - m_new[..., None]).masked_fill(~valid, 0.0)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqc,bckd->bkgqd", p, vf[:, k0:k0 + kc])
+            m = m_new
+        out[:, q0:q0 + qc] = (acc / torch.clamp(l[..., None], min=1e-30)
+                              ).permute(0, 3, 1, 2, 4)
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
 def causal_mask(s: int, window: Optional[int] = None,
                 device=None) -> torch.Tensor:
     i = torch.arange(s, device=device)[:, None]
@@ -121,11 +167,14 @@ def attention_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig,
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               causal=(kv is None), window=cfg.sliding_window,
                               scale=scale)
+    elif (s >= _CHUNK_THRESHOLD or k.shape[1] >= _CHUNK_THRESHOLD) \
+            and s % _Q_CHUNK == 0 and k.shape[1] % _KV_CHUNK == 0:
+        # as the reference: the window applies to self-attention only, and
+        # a mask the caller passed is not read on this route
+        out = _sdpa_chunked(q, k, v, scale, causal=(kv is None),
+                            window=cfg.sliding_window if kv is None
+                            else None)
     else:
-        if s >= _CHUNK_THRESHOLD or k.shape[1] >= _CHUNK_THRESHOLD:
-            raise NotImplementedError(
-                "attention over >= 8192 positions without flash (the "
-                "reference's _sdpa_chunked) is not yet ported")
         if mask is None:
             if kv is None:
                 mask = causal_mask(s, cfg.sliding_window, x.device)[None]

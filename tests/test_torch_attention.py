@@ -123,3 +123,41 @@ def test_attention_prefill_chunk_paged(bridged, start):
     np.testing.assert_allclose(to_np(ty), to_np(jy), atol=ATOL)
     np.testing.assert_allclose(to_np(tc.k), to_np(jc.k), atol=ATOL)
     np.testing.assert_allclose(to_np(tc.v), to_np(jc.v), atol=ATOL)
+
+
+@pytest.fixture(scope="module")
+def one_head():
+    """One query head and one kv head of 16 (fp32): long sequences stay
+    small enough for the CPU."""
+    jmodel, jparams, tmodel, tparams = models(seed=5, num_heads=1,
+                                              num_kv_heads=1, head_dim=16)
+    jp = {k: {kk: vv[0] for kk, vv in v.items()}
+          for k, v in jparams["blocks"]["attn"].items()}
+    return jmodel.cfg, jp, tmodel.cfg, _layer(tparams["blocks"]["attn"], 0)
+
+
+@pytest.mark.parametrize("s,t,chunked", [
+    (8192, None, True),    # S % 1024 == 0: the chunked online-softmax route
+    (8200, None, False),   # S >= 8192 but ragged: plain _sdpa with the mask
+    (1024, 8192, True),    # cross-attention over 8192 keys: not causal
+])
+def test_attention_fwd_long(one_head, monkeypatch, s, t, chunked):
+    """Flash off at S or T >= 8192 routes as the reference's
+    ``attention_fwd`` does; both compute in fp32 (the chunked route's sums
+    differ in order only), within ATOL."""
+    jcfg, jp, tcfg, tp = one_head
+    calls = []
+    real = ta._sdpa_chunked
+    monkeypatch.setattr(ta, "_sdpa_chunked",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    x = _x(1, s, jcfg.d_model, seed=7)
+    kv = None if t is None else tuple(
+        _x(1, t, 1, tcfg.resolved_head_dim, seed=8 + i) for i in range(2))
+    jy = to_np(ja.attention_fwd(
+        jp, jnp.asarray(x), jcfg,
+        kv=None if kv is None else tuple(map(jnp.asarray, kv))))
+    ty = ta.attention_fwd(
+        tp, torch.from_numpy(x), tcfg,
+        kv=None if kv is None else tuple(map(torch.from_numpy, kv)))
+    assert len(calls) == chunked
+    np.testing.assert_allclose(to_np(ty), jy, atol=ATOL)

@@ -95,6 +95,49 @@ def test_grouped_swiglu_matches_plain_on_card(e, c, d, f, load, dtype, tol):
         assert torch.equal(y, gmm_ops.grouped_swiglu(x, *w))
 
 
+def _wkv_inputs(b, t, h, n, dt, with_s0, seed, extreme=False):
+    """r, k, v ~ N(0, 1) in ``dt``; w in (0.45, 0.95), or with ``extreme``
+    w = exp(-exp(x)), x ~ U(-6, 5) (fp32 w underflows to 0 past x ~ 4.6),
+    with whole steps at exactly 0 and exactly 1; u ~ N(0, 0.1); s0 ~
+    N(0, 1) or None."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r, k, v = (torch.randn(b, t, h, n, generator=g, device="cuda").to(dt)
+               for _ in range(3))
+    if extreme:
+        w = torch.exp(-torch.exp(
+            torch.rand(b, t, h, n, generator=g, device="cuda") * 11 - 6))
+        w[:, 5:9] = 0
+        w[:, 300:340] = 1
+        w[:, 700] = 0
+    else:
+        w = 0.45 + 0.5 * torch.sigmoid(torch.randn(b, t, h, n, generator=g,
+                                                   device="cuda"))
+    u = 0.1 * torch.randn(h, n, generator=g, device="cuda")
+    s0 = torch.randn(b, h, n, n, generator=g, device="cuda") \
+        if with_s0 else None
+    return r, k, v, w, u, s0
+
+
+def _check_wkv(r, k, v, w, u, s0):
+    """One launch, within the tolerances of the plain version: y in bf16
+    within one bf16 ulp (2^-8 relative, doubled for the rounding point),
+    fp32 within 1e-4 relative; s_end fp32 within 1e-4 relative; 1e-4
+    absolute on each.  A second call gives the same bits."""
+    before = wkv_ops.wkv6.launches
+    y, s = wkv_ops.wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert wkv_ops.wkv6.launches == before + 1
+    assert y.dtype == r.dtype and s.dtype == torch.float32
+    want_y, want_s = wkv6_plain(r, k, v, w, u, s0)
+    rtol = 2 ** -7 if r.dtype == torch.bfloat16 else 1e-4
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    assert torch.all((y.float() - want_y.float()).abs()
+                     <= rtol * want_y.float().abs() + 1e-4)
+    assert torch.all((s - want_s).abs() <= 1e-4 * want_s.abs() + 1e-4)
+    y2, s2 = wkv_ops.wkv6(r, k, v, w, u, s0)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,t,h,n,with_s0", [
@@ -102,32 +145,30 @@ def test_grouped_swiglu_matches_plain_on_card(e, c, d, f, load, dtype, tol):
     (1, 77, 3, 32, True),           # ragged T, a non-zero state handed in
     (2, 100, 4, 64, True),
     (1, 1024, 40, 64, False),       # rwkv6-3b's prefill
+    (1, 64, 40, 64, True),          # one chunk: the shortest prompt
+    (1, 65, 40, 64, True),          # a chunk and one step
+    (1, 1, 2, 64, True),            # one step
+    (3, 200, 5, 32, True),          # four chunks, the last ragged
+    (2, 130, 3, 16, False),
 ])
 def test_wkv6_matches_plain_on_card(b, t, h, n, with_s0, dtype):
-    """r, k, v in ``dtype``; w, u, s0 fp32.  y: bf16 within one bf16 ulp
-    (2^-8 relative, doubled for the rounding point) of the plain version,
-    fp32 within 1e-4 relative; s_end fp32 within 1e-4 relative."""
+    """r, k, v in ``dtype``; w, u, s0 fp32; the tolerances of
+    ``_check_wkv``, and the same bits on a second call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    dt = getattr(torch, dtype)
-    g = torch.Generator(device="cuda").manual_seed(b * t + n)
-    r, k, v = (torch.randn(b, t, h, n, generator=g, device="cuda").to(dt)
-               for _ in range(3))
-    w = 0.45 + 0.5 * torch.sigmoid(torch.randn(b, t, h, n, generator=g,
-                                               device="cuda"))
-    u = 0.1 * torch.randn(h, n, generator=g, device="cuda")
-    s0 = torch.randn(b, h, n, n, generator=g, device="cuda") \
-        if with_s0 else None
-    before = wkv_ops.wkv6.launches
-    y, s = wkv_ops.wkv6(r, k, v, w, u, s0)
-    torch.cuda.synchronize()
-    assert wkv_ops.wkv6.launches == before + 1
-    assert y.dtype == dt and s.dtype == torch.float32
-    want_y, want_s = wkv6_plain(r, k, v, w, u, s0)
-    rtol = 2 ** -7 if dtype == "bfloat16" else 1e-4
-    assert torch.all((y.float() - want_y.float()).abs()
-                     <= rtol * want_y.float().abs() + 1e-4)
-    assert torch.all((s - want_s).abs() <= 1e-4 * want_s.abs() + 1e-4)
+    _check_wkv(*_wkv_inputs(b, t, h, n, getattr(torch, dtype), with_s0,
+                            seed=b * t + n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_fast_decay_on_card(dtype):
+    """rwkv6-3b's heads at T = 1024 with the extreme decays: the floor of
+    e^-30 keeps every exponent finite; the tolerances of ``_check_wkv``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    _check_wkv(*_wkv_inputs(1, 1024, 40, 64, getattr(torch, dtype), True,
+                            seed=17, extreme=True))
 
 
 @pytest.mark.cuda

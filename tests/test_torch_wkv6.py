@@ -1,8 +1,10 @@
 """The WKV-6 kernel's plain version against the JAX kernel (Pallas, interpret
 mode), its step-scan oracle and the chunked associative scan, on the shapes
-of ``test_kernels.py``, and the wrapper's device rules.  The CUDA kernel
-itself is held to the plain version on the card (``test_torch_cuda.py``,
-``chip_smoke.py``)."""
+of ``test_kernels.py``; the CUDA kernel's chunked algorithm
+(``wkv6_chunked_plain``) against the same, at ragged lengths, from a
+non-zero state and under extreme decays; and the wrapper's device rules.
+The CUDA kernel itself is held to the plain version on the card
+(``test_torch_cuda.py``, ``chip_smoke.py``)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,7 +14,7 @@ from repro.kernels.wkv6.ops import wkv6 as jax_wkv6
 from repro.kernels.wkv6.ref import wkv6_ref
 from repro.models.ssm import _wkv_chunk as jax_wkv_chunk
 from repro_torch.kernels.wkv6 import ops, wkv6
-from repro_torch.kernels.wkv6.ref import wkv6_plain
+from repro_torch.kernels.wkv6.ref import wkv6_chunked_plain, wkv6_plain
 from repro_torch.models.ssm import _wkv_chunk
 
 from _torch_parity import to_np
@@ -125,3 +127,95 @@ def test_device_rules():
         wkv6(r, k, v, w, u[:, :8])
     with pytest.raises(ValueError, match="u must be"):
         wkv6(r, k, v, w, u, torch.zeros(1, 2, 16, 8))
+
+
+# (B, T, H, N, non-zero s0): one step, a chunk less one, one chunk, a chunk
+# and one, the ragged 77, and four chunks, the last ragged
+CHUNKED = [(b, t, h, n, False) for b, t, h, n, _ in SHAPES] + [
+    (2, 1, 2, 16, True), (1, 63, 2, 32, True), (1, 64, 2, 64, False),
+    (2, 65, 3, 16, True), (1, 77, 2, 64, True), (1, 200, 2, 64, True)]
+
+
+@pytest.mark.parametrize("b,t,h,n,with_s0", CHUNKED)
+def test_chunked_plain_matches_jax(b, t, h, n, with_s0):
+    """The kernel's chunked algorithm (fp32) against the JAX kernel in
+    interpret mode, and, from a zero state, its step-scan oracle; within
+    ATOL (sums in other orders, the exps of summed log decays)."""
+    arrays = _inputs(b, t, h, n, seed=t + n)
+    s0 = (np.random.default_rng(t).standard_normal((b, h, n, n))
+          .astype(np.float32) if with_s0 else None)
+    y, s = wkv6_chunked_plain(*_torch(*arrays),
+                              None if s0 is None else torch.from_numpy(s0))
+    jx = [jnp.asarray(a) for a in arrays]
+    want = [jax_wkv6(*jx, None if s0 is None else jnp.asarray(s0),
+                     interpret=True)]
+    if s0 is None:
+        want.append(wkv6_ref(*jx))
+    for want_y, want_s in want:
+        np.testing.assert_allclose(to_np(y), to_np(want_y), atol=ATOL)
+        np.testing.assert_allclose(to_np(s), to_np(want_s), atol=ATOL)
+
+
+def _wkv_fp64(r, k, v, w, u, s0):
+    """The recurrence step by step in fp64 numpy: (y, s_end)."""
+    r, k, v, w, u, s = (a.astype(np.float64) for a in (r, k, v, w, u, s0))
+    y = np.empty_like(r)
+    for i in range(r.shape[1]):
+        ri, ki, vi, wi = r[:, i], k[:, i], v[:, i], w[:, i]
+        y[:, i] = (np.einsum("bhk,bhkv->bhv", ri, s)
+                   + (ri * u * ki).sum(-1, keepdims=True) * vi)
+        s = wi[..., None] * s + ki[..., None] * vi[..., None, :]
+    return y, s
+
+
+def test_chunked_plain_extreme_decay():
+    """Decays w = exp(-exp(x)), x up to 5 (fp32 w underflows to 0, and is
+    denormal just before), whole steps at exactly 0 and exactly 1 (one
+    inside the 4th chunk's 2nd sub-block, one across two chunks), and
+    channels held at 1 throughout: finite, and within 1e-4 of the largest
+    |y| and |s_end| of the fp64 recurrence on the same fp32 inputs (the
+    LOG_FLOOR of e^-30 stands in for the decays below it)."""
+    b, t, h, n = 1, 200, 2, 64
+    rng = np.random.default_rng(12)
+    r, k, v = (rng.standard_normal((b, t, h, n)).astype(np.float32)
+               for _ in range(3))
+    w = np.exp(-np.exp(rng.uniform(-6, 5, (b, t, h, n)))).astype(np.float32)
+    w[:, 5:9] = 0
+    w[:, 60:80] = 1
+    w[:, 130] = 0
+    w[..., :4] = 1
+    assert (w == 0).any() and ((w > 0) & (w < 1.2e-38)).any()
+    u = (0.1 * rng.standard_normal((h, n))).astype(np.float32)
+    s0 = rng.standard_normal((b, h, n, n)).astype(np.float32)
+    y, s = wkv6_chunked_plain(*_torch(r, k, v, w, u, s0))
+    want_y, want_s = _wkv_fp64(r, k, v, w, u, s0)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    assert np.abs(to_np(y) - want_y).max() <= 1e-4 * np.abs(want_y).max()
+    assert np.abs(to_np(s) - want_s).max() <= 1e-4 * np.abs(want_s).max()
+
+
+def test_phase_profiler_marks_every_phase():
+    """``launch/profile_wkv6.py`` instruments a copy of the kernel at its
+    phase comments: each phase is marked once, the last mark and the timer
+    reads close the kernel's body, and the read-out function is exported."""
+    from repro_torch.launch.profile_wkv6 import PHASES, instrumented_source
+    src = instrumented_source()
+    for i in range(len(PHASES) + 1):
+        assert src.count(f"WKV6_MARK({i});") == 1, i
+    assert src.count("WKV6_TIME(14);") == 1
+    assert src.count("WKV6_TIME(15);") == 1
+    assert src.index(f"WKV6_MARK({len(PHASES)});") \
+        < src.index("cudaError_t launch(")
+    assert "int wkv6_prof_read(" in src
+    assert src.count("= ticket;") == 1
+
+
+@pytest.mark.parametrize("b,t,h,n,chunks", [
+    (1, 1, 40, 64, 1), (1, 64, 40, 64, 1), (1, 65, 40, 64, 2),
+    (1, 1024, 40, 64, 16), (2, 77, 3, 16, 2)])
+def test_wkv6_plan(b, t, h, n, chunks):
+    """A CTA a (b, h, chunk of 64 steps); one chunk needs no chain, more
+    need two tagged states a head and the chunk counter, all zeroed."""
+    plan = ops.wkv6_plan(b, t, h, n)
+    assert plan.chunks == chunks and plan.ctas == b * h * chunks
+    assert plan.chain_words == (2 * b * h * n * n + 1 if chunks > 1 else 0)
