@@ -56,11 +56,39 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    --seed) served by the paged ``ServingEngine``: 16 requests, prompts of
    64-1024 tokens, 32 new tokens each; every request done, the allocator's
    invariants hold, logits finite, and flash attention launched in both
-   prefill and decode.  Then paged == contiguous on 4 requests.
+   prefill and decode.  Then paged == contiguous on 4 requests.  Then the
+   speculative paths (``phase_spec``) on 8 of those prompts, 32 new tokens:
+   the plain paged engine, a self draft (k = 4) and a cross draft (the
+   same config from --seed + 1, k = 4, adaptive), each served with the
+   counts set to 0 just before it and read just after; every request done
+   with 32 tokens, ``alloc.check()``, rounds > 0, the self draft's
+   acceptance >= 0.9, the cross draft's wasted > 0, flash attention
+   launched once a layer in every draft step and never in a verify call;
+   draft, verify and plain-decode seconds and calls, launches by phase and
+   the share of tokens equal to the plain engine's are printed.  Then the
+   verify probe (``phase_verify_probe``): 8 slots at mixed positions,
+   ``verify_paged`` on 5 tokens against 5 sequential paged decode steps,
+   per row the relative logit difference and argmax agreement (reported).
+4b. the greedy contract (``phase_spec_exact``): qwen2-1.5b at full width,
+   4 of 28 layers, fp32, flash off, 4 requests, 16 new tokens: the plain
+   engine and a self, a cross and a partial draft (the target's weights
+   with seeded noise, giving a round with 0 < matched < k) must emit
+   identical tokens (a difference passes only as a recorded tie: a top-2
+   gap under 1e-5 of the largest |logit|); the self draft accepts all.
+   Then the verify probe in fp32, within 1e-4 of the largest |logit|.
 5. main path 2: full-width Mixtral-8x22B cut to 8 of its 56 layers (random
    bf16 weights from --seed), served the same way: 8 requests, prompts of
    64-512 tokens, 16 new tokens each; both kernels launched in both
-   prefill and decode.  Then paged == contiguous on 4 requests.
+   prefill and decode.  Then paged == contiguous on 4 requests.  Then
+   ``phase_spec`` with the plain engine and a self draft (k = 4, fixed):
+   the checks above (the self draft's acceptance >= 0.6: see
+   MOE_SELF_ACCEPT_MIN), and grouped SwiGLU launched once a layer in every
+   verify call with its dispatch reaching C = B (k + 1) = 40 rows (the
+   128-row tile); the grouped-SwiGLU device time of each verify and plain
+   decode call (CUDA events) is printed.  Then the verify probe at
+   Mixtral's widths: bf16 (reported), and fp32 with 2 of its 56 layers
+   through the kernels (fp32 grouped SwiGLU, flash's split decode), within
+   1e-4 of the largest |logit|.
 6. main path 3: full rwkv6-3b (32 layers, random bf16 weights from --seed)
    served by the contiguous ``ServingEngine`` (the family has no paged
    path): 8 requests, prompts of 64-1024 tokens, 32 new tokens each; WKV-6
@@ -84,8 +112,9 @@ pass and, with several splits, the combine pass) and a grouped SwiGLU (its
 two phases) each count once.  ``kernel_launches`` counts the kernels those
 calls launched.
 
-The line before the last is the kernels' JSON record; the last is
-``{"ok": true, "device": {...}}``.
+Two lines before the last is the JSON record of the kernels and of the
+speculative phases (``spec``); then the card's name and power limit; the
+last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -123,7 +152,10 @@ from repro_torch.kernels.wkv6 import build as wkv_build  # noqa: E402
 from repro_torch.kernels.wkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.wkv6.ref import wkv6_plain  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.serving import ServingEngine  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.attention import PagedKVCache  # noqa: E402
+from repro_torch.serving import ServingEngine, Speculator  # noqa: E402
+from repro_torch.serving import speculative  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and FLOP/s
 #: by input type (bf16 on the tensor cores, fp32 outside them)
@@ -165,6 +197,23 @@ SCAN_PATH = "prefix-scan benchmarks"
 #: the WKV routes (kernel and chunked scan) in fp32 at full depth: the same
 #: fp32 products summed in other orders, ~1e-4 apart
 ROUTE_TOL_FP32 = 1e-3
+#: speculative decoding: the draft depth; the self draft's least acceptance
+#: in bf16 (verify on the masked path, draft and decode on the split
+#: kernel, whose roundings differ: qwen2-1.5b's logits by ~2 % of the
+#: largest |logit|, so near-ties flip).  Mixtral's is lower: a rounding
+#: difference that flips a token's top-2 experts moves its output far more,
+#: and verify's dispatch takes the 128-row tile where decode takes the
+#: 16-row one; 0.764 on an H100 80GB HBM3 at 700 W (the qwen bound failed
+#: there).  The fp32 verify probe's bound on |verify - sequential decode|
+#: relative to the row's largest |logit|; a top-2 logit gap under TIE_REL
+#: of the largest |logit| is a tie; the partial draft's noise scales (of
+#: each leaf's std), tried in order
+SPEC_K = 4
+SELF_ACCEPT_MIN = 0.9
+MOE_SELF_ACCEPT_MIN = 0.6
+PROBE_TOL_FP32 = 1e-4
+TIE_REL = 1e-5
+PARTIAL_NOISE = (0.05, 0.1, 0.2, 0.4)
 
 
 def _zero_counts() -> None:
@@ -860,10 +909,13 @@ def _prompts(rng, n, vocab, longest=1024):
 class _Phase:
     """Wraps an engine call: device-synchronized seconds, calls, each
     kernel's launches (wrapper calls and kernels) inside it, and a
-    finite-logits check."""
+    finite-logits check.  While it runs, ``_Phase.current`` holds its
+    ``name`` (read by ``_GmmTimer``)."""
 
-    def __init__(self, fn):
-        self.fn, self.seconds, self.calls = fn, 0.0, 0
+    current = None
+
+    def __init__(self, fn, name=None):
+        self.fn, self.name, self.seconds, self.calls = fn, name, 0.0, 0
         self.launches = dict.fromkeys(COUNTERS, 0)
         self.kernel_launches = dict.fromkeys(COUNTERS, 0)
 
@@ -871,7 +923,9 @@ class _Phase:
         n0 = {k: c.launches for k, c in COUNTERS.items()}
         k0 = _kernel_launches()
         t0 = time.perf_counter()
+        _Phase.current = self.name
         logits, cache = self.fn(*args)
+        _Phase.current = None
         if not torch.isfinite(logits).all():
             raise AssertionError("non-finite logits")
         torch.cuda.synchronize()
@@ -954,6 +1008,313 @@ def phase_paged_equals_contiguous(model, params, prompts, s_max) -> None:
                              "tokens differ")
     print(f"paged == contiguous ({model.cfg.name}): {len(prompts)} requests, "
           f"{sum(map(len, results['paged']))} identical tokens")
+
+
+class _GmmTimer:
+    """Stands in for ``models.moe.grouped_swiglu`` during a speculative
+    run: calls the wrapper and records, by the ``_Phase`` it ran in, the
+    dispatch rows C of each call and its device time (CUDA events around
+    the call)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.rows, self.events = {}, {}
+
+    def __call__(self, x, *args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.fn(x, *args)
+        end.record()
+        self.rows.setdefault(_Phase.current, set()).add(int(x.shape[1]))
+        self.events.setdefault(_Phase.current, []).append((start, end))
+        return out
+
+    def summary(self) -> dict:
+        torch.cuda.synchronize()
+        out = {}
+        for name, pairs in self.events.items():
+            ms = [s.elapsed_time(e) for s, e in pairs]
+            out[name] = dict(calls=len(ms), C=sorted(self.rows[name]),
+                             mean_ms=statistics.fmean(ms),
+                             median_ms=statistics.median(ms))
+        return out
+
+
+def _spec_run(model, params, prompts, *, s_max, max_new, spec):
+    """Serve ``prompts`` through the paged engine, with ``spec`` (a
+    Speculator) or without; every engine and speculator call wrapped in a
+    ``_Phase``, the counts set to 0 just before the run and read just
+    after.  Checks: every request DONE with ``max_new`` tokens, the
+    allocator's invariants."""
+    eng = ServingEngine(model, params, max_batch=8, s_max=s_max,
+                        block_size=16, kv_mode="paged", speculator=spec)
+    phases = {"prefill": _Phase(eng._prefill, "prefill"),
+              "decode": _Phase(eng._decode, "decode")}
+    eng._prefill, eng._decode = phases["prefill"], phases["decode"]
+    if spec is not None:
+        phases.update(warm=_Phase(spec._prefill, "warm"),
+                      draft=_Phase(spec._decode, "draft"),
+                      verify=_Phase(spec._verify, "verify"))
+        spec._prefill, spec._decode, spec._verify = (
+            phases["warm"], phases["draft"], phases["verify"])
+    reqs = [eng.submit(p, max_new_tokens=max_new, priority=float(i % 3))
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    outs = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in COUNTERS.items()}
+    if not all(r.state.name == "DONE" for r in reqs):
+        raise AssertionError("not every request finished")
+    eng.alloc.check()
+    tokens = [outs[r.rid] for r in reqs]
+    if any(len(t) != max_new for t in tokens):
+        raise AssertionError(f"token counts {[len(t) for t in tokens]}, "
+                             f"expected {max_new} each")
+    for k in COUNTERS:
+        if launches[k] != sum(ph.launches[k] for ph in phases.values()):
+            raise AssertionError(f"{k}: {launches[k]} launches, not all "
+                                 "inside the engine's calls")
+    n = sum(map(len, tokens))
+    stats = dict(tokens=n, wall_s=wall, tokens_per_s=n / wall,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 launches=launches,
+                 phases={name: dict(calls=ph.calls, seconds=ph.seconds,
+                                    ms_per_call=ph.seconds / ph.calls * 1e3
+                                    if ph.calls else None,
+                                    launches=ph.launches,
+                                    kernel_launches=ph.kernel_launches)
+                         for name, ph in phases.items()})
+    if spec is not None:
+        stats["spec_stats"] = eng.spec_stats
+    return tokens, stats, phases
+
+
+def _same_share(got, want) -> float:
+    """Share of tokens equal, position by position, to ``want``'s."""
+    same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
+    return same / sum(map(len, want))
+
+
+def phase_spec(model, params, prompts, *, s_max, max_new, drafts,
+               moe=False) -> dict:
+    """Speculative decoding at full width: the plain paged engine, then one
+    engine for each of ``drafts`` ((name, Speculator, least acceptance or
+    None)) on the same prompts.  Checks, beyond ``_spec_run``'s: rounds >
+    0; the self draft's acceptance at least its bound, a cross draft's
+    wasted > 0; flash attention launched once a layer in every draft step
+    and never in a verify call; with ``moe``, grouped SwiGLU once a layer
+    in every verify call and its dispatch reaching C = B (k + 1).  The share
+    of tokens equal to the plain engine's is printed, not asserted: verify
+    takes the masked path, plain decode the split kernel (P rounded to
+    bf16 before PV)."""
+    layers = model.cfg.num_layers
+    timer = _GmmTimer(moe_mod.grouped_swiglu) if moe else None
+    out = {}
+    plain = None
+    for name, spec, least in [("plain", None, None)] + drafts:
+        if timer is not None:
+            timer.rows, timer.events = {}, {}
+            moe_mod.grouped_swiglu = timer
+        try:
+            tokens, stats, ph = _spec_run(model, params, prompts,
+                                          s_max=s_max, max_new=max_new,
+                                          spec=spec)
+        finally:
+            if timer is not None:
+                moe_mod.grouped_swiglu = timer.fn
+        if timer is not None:
+            stats["grouped_swiglu"] = timer.summary()
+        if spec is None:
+            plain = tokens
+        else:
+            s = stats["spec_stats"]
+            stats["same_as_plain"] = _same_share(tokens, plain)
+            if s["rounds"] == 0:
+                raise AssertionError(f"{name}: no speculation round")
+            if least is not None and not s["acceptance_rate"] >= least:
+                raise AssertionError(f"{name}: acceptance "
+                                     f"{s['acceptance_rate']} < {least}")
+            if least is None and s["wasted"] == 0:
+                raise AssertionError(f"{name}: the cross draft wasted "
+                                     "nothing")
+            draft, verify = ph["draft"], ph["verify"]
+            if draft.launches["flash_attention"] != layers * draft.calls \
+                    or verify.launches["flash_attention"] != 0:
+                raise AssertionError(
+                    f"{name}: flash launches {draft.launches} in "
+                    f"{draft.calls} draft steps, {verify.launches} in "
+                    f"{verify.calls} verify calls")
+            if moe:
+                want_c = len(spec.engine.slot_req) * (spec.adapt.k0 + 1)
+                if verify.launches["grouped_swiglu"] != \
+                        layers * verify.calls:
+                    raise AssertionError(
+                        f"{name}: grouped SwiGLU {verify.launches} in "
+                        f"{verify.calls} verify calls")
+                if want_c not in stats["grouped_swiglu"]["verify"]["C"]:
+                    raise AssertionError(
+                        f"{name}: verify's dispatch rows "
+                        f"{stats['grouped_swiglu']['verify']['C']}, never "
+                        f"{want_c}")
+        out[name] = stats
+        print(f"spec {model.cfg.name} {name}: " + json.dumps(stats))
+    return out
+
+
+def _top2_gap(model, params, context) -> tuple:
+    """The target's (top-1 - top-2 logit, largest |logit|) after
+    ``context``, from a prefill."""
+    toks = torch.as_tensor(np.asarray(context)[None, :], device=model.device)
+    logits = model.prefill(params, {"tokens": toks})[0][0, -1].float()
+    top = torch.topk(logits, 2).values
+    return (top[0] - top[1]).item(), logits.abs().max().item()
+
+
+def _noisy(params, scale, seed, device):
+    """``params`` plus N(0, scale * std) noise on every leaf."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def go(tree):
+        if isinstance(tree, dict):
+            return {k: go(v) for k, v in tree.items()}
+        std = tree.float().std().item() if tree.numel() > 1 else 0.0
+        noise = torch.randn(tree.shape, generator=g, device=device)
+        return (tree.float() + scale * std * noise).to(tree.dtype)
+    return go(params)
+
+
+def phase_spec_exact(model, params, prompts, *, s_max, max_new,
+                     seed) -> dict:
+    """The greedy contract on the card (fp32, flash off: plain decode and
+    verify both take the masked path).  The plain engine, then a self, a
+    cross (seed + 1) and a partial draft (the target's weights with seeded
+    noise, the first of PARTIAL_NOISE that gives a round with 0 < matched
+    < k); each must emit the plain engine's tokens.  At a request's first
+    differing token the target's top-2 gap is taken: under TIE_REL of the
+    row's largest |logit| it is recorded as a tie, else the phase fails.
+    The self draft's acceptance must be 1."""
+    plain, _, _ = _spec_run(model, params, prompts, s_max=s_max,
+                            max_new=max_new, spec=None)
+    out = dict(prompts=[len(p) for p in prompts], drafts={})
+    rounds = []
+    accept = speculative.accept_longest_prefix
+
+    def record(proposals, target):
+        accepted, matched = accept(proposals, target)
+        rounds.append((matched, len(proposals)))
+        return accepted, matched
+
+    def run(name, dparams, **kw):
+        rounds.clear()
+        speculative.accept_longest_prefix = record
+        try:
+            tokens, stats, _ = _spec_run(
+                model, params, prompts, s_max=s_max, max_new=max_new,
+                spec=Speculator(model, dparams, k=SPEC_K, **kw))
+        finally:
+            speculative.accept_longest_prefix = accept
+        ties = []
+        for p, got, want in zip(prompts, tokens, plain):
+            j = next((i for i, (a, b) in enumerate(zip(got, want))
+                      if a != b), None)
+            if j is None:
+                continue
+            gap, top = _top2_gap(model, params, list(p) + want[:j])
+            ties.append(dict(position=j, plain=want[j], spec=got[j],
+                             gap=gap, max_abs_logit=top))
+            if not gap < TIE_REL * top:
+                raise AssertionError(f"{name}: token {j} differs ({got[j]} "
+                                     f"against {want[j]}) with a top-2 gap "
+                                     f"of {gap} (max |logit| {top})")
+        stats.update(ties=ties, partial_rounds=sum(
+            1 for m, k in rounds if 0 < m < k), rounds_matched=list(rounds))
+        out["drafts"][name] = stats
+        print(f"spec exact {name}: " + json.dumps(
+            dict(spec_stats=stats["spec_stats"], ties=ties,
+                 partial_rounds=stats["partial_rounds"])))
+        return stats
+
+    s = run("self", params)
+    if s["spec_stats"]["acceptance_rate"] != 1.0:
+        raise AssertionError(f"fp32 self draft acceptance "
+                             f"{s['spec_stats']['acceptance_rate']}")
+    dparams = model.init(seed + 1)
+    run("cross", dparams, adaptive=True)
+    del dparams
+    for scale in PARTIAL_NOISE:
+        dparams = _noisy(params, scale, seed, model.device)
+        s = run(f"partial_{scale}", dparams, adaptive=False)
+        del dparams
+        if s["partial_rounds"] > 0:
+            break
+    else:
+        raise AssertionError(f"no noise of {PARTIAL_NOISE} gave a round "
+                             "with 0 < matched < k")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_verify_probe(model, params, prompts, *, s_max, seed,
+                       bound=None) -> dict:
+    """One batch state (the prompts prefilled into the pool, every slot
+    busy, mixed positions): ``verify_paged`` on c = SPEC_K + 1 tokens
+    against as many sequential ``decode_step_paged`` calls, each on its own
+    copy of the pool.  Per row i: max |difference| of the logits over its
+    largest |logit|, and the share of equal argmaxes.  With ``bound``,
+    every relative difference must be within it."""
+    eng = ServingEngine(model, params, max_batch=8, s_max=s_max,
+                        block_size=16, kv_mode="paged")
+    for i, p in enumerate(prompts):
+        eng.submit(p, max_new_tokens=16, priority=float(i % 3))
+    for _ in range(64):
+        if all(r is not None for r in eng.slot_req):
+            break
+        eng.step()
+    else:
+        raise AssertionError("slots never all busy")
+    c = SPEC_K + 1
+    b = len(eng.slot_req)
+    dev = model.device
+    pos = torch.as_tensor(eng.slot_pos, device=dev)
+    if int(pos.max()) + c > eng.cap:
+        raise AssertionError("probe positions past the ring")
+    for i, r in enumerate(eng.slot_req):
+        eng.alloc.ensure(r.rid, int(eng.slot_pos[i]) + c)
+    table = torch.as_tensor(np.stack([eng._table_row(r.rid)
+                                      for r in eng.slot_req]), device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, model.cfg.vocab_size, (b, c), generator=g,
+                           device=dev)
+    tokens[:, 0] = torch.as_tensor(eng.last_token[:, 0], device=dev)
+
+    def pool():
+        return PagedKVCache(eng.cache.k.clone(), eng.cache.v.clone())
+    verify = model.verify_paged(params, tokens, pool(), table, pos)[0]
+    cache = pool()
+    rel, agree = [], []
+    for i in range(c):
+        step, cache = model.decode_step_paged(params, tokens[:, i:i + 1],
+                                              cache, table, pos + i)
+        a, d = verify[:, i].float(), step[:, 0].float()
+        rel.append(((a - d).abs().max() / d.abs().max()).item())
+        agree.append((a.argmax(-1) == d.argmax(-1)).float().mean().item())
+    out = dict(dtype=str(model.cfg.dtype), use_flash=model.cfg.use_flash,
+               positions=eng.slot_pos.tolist(), rel_max_abs_diff=rel,
+               argmax_agree=agree, bound=bound)
+    print(f"verify probe {model.cfg.name} {model.cfg.dtype} "
+          f"flash={model.cfg.use_flash}: " + json.dumps(out))
+    if bound is not None and not max(rel) <= bound:
+        raise AssertionError(f"verify vs sequential decode: {rel} > {bound}")
+    del eng, cache, verify
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _cast_tree(tree, dtype):
@@ -1070,6 +1431,31 @@ def main() -> int:
                            kv_mode="paged",
                            kernels={"flash_attention": (True, True)})
     phase_paged_equals_contiguous(model, params, prompts[:4], 2048)
+    spec = dict(probe={})
+    cross = model.init(args.seed + 1)
+    spec["qwen2-1.5b"] = phase_spec(
+        model, params, prompts[:8], s_max=2048, max_new=32, drafts=[
+            ("self", Speculator(model, params, k=SPEC_K), SELF_ACCEPT_MIN),
+            ("cross", Speculator(model, cross, k=SPEC_K, adaptive=True),
+             None)])
+    del cross
+    spec["probe"]["bf16_flash"] = phase_verify_probe(
+        model, params, prompts[:8], s_max=2048, seed=args.seed)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the greedy contract on the card: qwen2-1.5b at full width, 4 layers,
+    # fp32, flash off (verify and plain decode on the same masked path)
+    cfg = get_config("qwen2-1.5b").replace(
+        num_layers=4, dtype="float32", param_dtype="float32",
+        use_flash=False)
+    model, params = _init(cfg, args.seed)
+    spec["qwen2-1.5b_fp32_exact"] = phase_spec_exact(
+        model, params, prompts[:4], s_max=2048, max_new=16, seed=args.seed)
+    spec["probe"]["fp32"] = phase_verify_probe(
+        model, params, prompts[:8], s_max=2048, seed=args.seed,
+        bound=PROBE_TOL_FP32)
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1083,6 +1469,24 @@ def main() -> int:
                               kernels={"flash_attention": (True, True),
                                        "grouped_swiglu": (True, True)})
     phase_paged_equals_contiguous(model, params, prompts[:4], 1024)
+    spec["mixtral-8x22b"] = phase_spec(
+        model, params, prompts, s_max=1024, max_new=16, moe=True, drafts=[
+            ("self", Speculator(model, params, k=SPEC_K, adaptive=False),
+             MOE_SELF_ACCEPT_MIN)])
+    spec["probe"]["mixtral_bf16_flash"] = phase_verify_probe(
+        model, params, prompts, s_max=1024, seed=args.seed)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same probe in fp32 at full width, 2 of 56 layers, through the
+    # kernels (fp32 grouped SwiGLU at verify's C = 40 and decode's C = 8,
+    # flash's split decode): what bf16 rounding hides must hold here
+    cfg = get_config("mixtral-8x22b").replace(
+        num_layers=2, dtype="float32", param_dtype="float32", use_flash=True)
+    model, params = _init(cfg, args.seed)
+    spec["probe"]["mixtral_fp32_flash"] = phase_verify_probe(
+        model, params, prompts, s_max=1024, seed=args.seed,
+        bound=PROBE_TOL_FP32)
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1103,7 +1507,7 @@ def main() -> int:
     rows = flash_rows + gmm_rows + wkv_rows + scan_rows
     for row in rows:
         row["launches"] = by_path[row["path"]][row["name"]]
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows, "spec": spec}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

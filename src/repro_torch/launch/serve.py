@@ -18,9 +18,17 @@ full Mixtral-8x22B does not fit one card, so on the GPU run it with
 contiguous state cache: the family has no paged path, so ``--kv auto``
 resolves to contiguous and ``--check-paged-equality`` skips the paged modes.
 
+Speculative decoding: ``--spec-draft self`` (the target drafts for itself)
+or a ported zoo name with the target's vocab; ``--spec-k`` and
+``--spec-adaptive`` as in the reference.  With ``--check-paged-equality``
+the ``paged+spec`` mode must generate the contiguous engine's tokens:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
+        --spec-draft self --check-paged-equality
+
 The flags are those of ``repro.launch.serve`` plus ``--device``;
-``--replicas > 1``, ``--spec-draft``, ``--chaos`` and ``--autoscale`` are
-not yet ported and exit 2.
+``--replicas > 1``, ``--chaos`` and ``--autoscale`` are not yet ported and
+exit 2.
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ import numpy as np
 from ..configs import get_config, scale_down
 from ..device import resolve_device
 from ..models import build_model
-from ..serving import ServingEngine
+from ..serving import ServingEngine, Speculator
 
 
 def _make_prompts(args, cfg):
@@ -63,6 +71,49 @@ def _engine_kw(args):
                 overflow=args.overflow)
 
 
+def _build_draft(args, model, params, cfg):
+    """Resolve ``--spec-draft`` into a ``(model, params)`` pair, failing
+    fast (exit 2) on an unknown name, a vocab mismatch or a family that
+    cannot draft, before any engine or cache is built."""
+    name = args.spec_draft
+    if name is None:
+        return None
+    if name == "self":
+        return model, params
+    try:
+        dcfg = get_config(name)
+    except KeyError as e:
+        print(f"--spec-draft {name!r}: {e.args[0]}", file=sys.stderr)
+        raise SystemExit(2)
+    tcfg = get_config(args.arch)
+    if dcfg.vocab_size != tcfg.vocab_size:
+        print(f"--spec-draft {name!r}: vocab {dcfg.vocab_size} != target "
+              f"{args.arch!r} vocab {tcfg.vocab_size}: draft and target "
+              f"must share a tokenizer", file=sys.stderr)
+        raise SystemExit(2)
+    if dcfg.family not in ("dense", "moe", "vlm"):
+        print(f"--spec-draft {name!r}: family {dcfg.family!r} cannot draft "
+              f"(speculation needs a positional KV cache for rollback)",
+              file=sys.stderr)
+        raise SystemExit(2)
+    if args.smoke:
+        dcfg = scale_down(dcfg, layers=2, d_model=256, d_ff=1024,
+                          vocab=cfg.vocab_size)
+    dcfg = dcfg.replace(use_flash=cfg.use_flash)
+    dmodel = build_model(dcfg, model.device)
+    return dmodel, dmodel.init(args.seed + 1)
+
+
+def _make_spec(args, draft) -> "Speculator | None":
+    """One Speculator per engine: it owns a per-slot draft cache sized to
+    the engine it attaches to."""
+    if draft is None:
+        return None
+    dmodel, dparams = draft
+    return Speculator(dmodel, dparams, k=args.spec_k,
+                      adaptive=args.spec_adaptive)
+
+
 def _run_engine(eng, prompts, args):
     reqs = [eng.submit(p, max_new_tokens=args.max_new_tokens,
                        priority=float(i % 3))
@@ -71,8 +122,9 @@ def _run_engine(eng, prompts, args):
     return reqs, outs
 
 
-def _serve_single(args, model, params, cfg) -> None:
-    eng = ServingEngine(model, params, **_engine_kw(args))
+def _serve_single(args, model, params, cfg, draft=None) -> None:
+    eng = ServingEngine(model, params, speculator=_make_spec(args, draft),
+                        **_engine_kw(args))
     t0 = time.perf_counter()
     reqs, outs = _run_engine(eng, _make_prompts(args, cfg), args)
     dt = time.perf_counter() - t0
@@ -97,13 +149,22 @@ def _serve_single(args, model, params, cfg) -> None:
               f"{eng.alloc.cached_tokens} tokens cached at drain, "
               f"evictions={eng.alloc.cache_evictions} "
               f"cow_forks={eng.alloc.cow_forks}")
+    if eng.speculator is not None:
+        s = eng.spec_stats
+        print(f"speculative: rounds={s['rounds']} drafted={s['drafted']} "
+              f"accepted={s['accepted']} "
+              f"acceptance={s['acceptance_rate']:.2f} "
+              f"merged_drafts={s['merged_drafts']} shed={s['shed']} "
+              f"verify_calls={s['verify_calls']}")
 
 
-def _check_paged_equality(args, model, params, cfg) -> int:
+def _check_paged_equality(args, model, params, cfg, draft=None) -> int:
     """Gate: the paged engine must generate exactly what the contiguous
     engine generates.  Also runs chunked-prefill and prefix-cached paged
     engines: every request must finish with the same token count, and
-    whether their tokens are exact is reported."""
+    whether their tokens are exact is reported.  With a draft, the
+    speculative paged engine must generate the contiguous engine's tokens
+    (greedy-exact)."""
     prompts = _make_prompts(args, cfg)
     results = {}
     cache_eng = None
@@ -118,12 +179,20 @@ def _check_paged_equality(args, model, params, cfg) -> int:
         ("paged+cache", dict(kv_mode="paged",
                              prefill_chunk=args.prefill_chunk or 8,
                              prefix_cache=True))]
+    if draft is not None:
+        modes.append(("paged+spec", dict(kv_mode="paged",
+                                         prefill_chunk=None,
+                                         prefix_cache=False)))
     for mode, over in modes:
         if mode != "contiguous" and not model.supports_paged:
             print(f"{mode}: family {cfg.family!r} has no paged path — skip")
             continue
+        if mode == "paged+spec" and not model.supports_speculation:
+            print(f"{mode}: family {cfg.family!r} has no verify path — skip")
+            continue
         kw = dict(_engine_kw(args), **over)   # --num-blocks etc. flow in
-        eng = ServingEngine(model, params, **kw)
+        spec = _make_spec(args, draft) if mode == "paged+spec" else None
+        eng = ServingEngine(model, params, speculator=spec, **kw)
         if mode == "paged+cache":
             # warm pass publishes the shared prefixes; the measured pass
             # below adopts them
@@ -167,6 +236,16 @@ def _check_paged_equality(args, model, params, cfg) -> int:
     print(f"OK: prefix-cached prefill token counts match "
           f"(token-exact: {cached == results['contiguous']}, hit_rate="
           f"{cache_eng.cache_hit_rate():.2f})")
+    spec_outs = results.get("paged+spec")
+    if spec_outs is not None:
+        if spec_outs != results["contiguous"]:
+            bad = sum(1 for a, b in zip(spec_outs, results["contiguous"])
+                      if a != b)
+            print(f"FAIL: speculative vs contiguous decode mismatch on "
+                  f"{bad}/{len(prompts)} requests", file=sys.stderr)
+            return 1
+        print(f"OK: speculative decode == contiguous decode "
+              f"(draft={args.spec_draft}, k={args.spec_k})")
     return 0
 
 
@@ -174,8 +253,6 @@ def _not_yet_ported(args) -> list:
     out = []
     if args.replicas > 1:
         out.append("--replicas > 1 (cluster serving)")
-    if args.spec_draft is not None:
-        out.append("--spec-draft (speculative decoding)")
     if args.chaos is not None:
         out.append("--chaos")
     if args.autoscale:
@@ -194,8 +271,8 @@ def main(argv=None) -> int:
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--s-max", type=int, default=128)
     ap.add_argument("--max-new-tokens", type=int, default=16)
-    # cluster, speculation and fault-injection flags of the reference
-    # launcher: parsed so the command lines match, refused below
+    # cluster and fault-injection flags of the reference launcher: parsed
+    # so the command lines match, refused below
     ap.add_argument("--steal", default="half_work",
                     choices=["half_work", "half_count", "none"])
     ap.add_argument("--placement", default="round_robin",
@@ -207,8 +284,13 @@ def main(argv=None) -> int:
     ap.add_argument("--autoscale", action="store_true")
     ap.add_argument("--max-replicas", type=int, default=None)
     ap.add_argument("--autoscale-target", type=float, default=256.0)
-    ap.add_argument("--spec-draft", default=None)
-    ap.add_argument("--spec-k", type=int, default=4)
+    ap.add_argument("--spec-draft", default=None,
+                    help="speculative decoding: zoo config to draft with "
+                         "('self' = the target drafts for itself); the "
+                         "draft must share the target's vocab and have a "
+                         "positional KV cache")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft tokens proposed per speculation round")
     ap.add_argument("--spec-adaptive", dest="spec_adaptive",
                     action="store_true", default=True)
     ap.add_argument("--no-spec-adaptive", dest="spec_adaptive",
@@ -261,9 +343,10 @@ def main(argv=None) -> int:
     cfg = cfg.replace(use_flash=use_flash)
     model = build_model(cfg, device)
     params = model.init(args.seed)
+    draft = _build_draft(args, model, params, cfg)
     if args.check_paged_equality:
-        return _check_paged_equality(args, model, params, cfg)
-    _serve_single(args, model, params, cfg)
+        return _check_paged_equality(args, model, params, cfg, draft)
+    _serve_single(args, model, params, cfg, draft)
     return 0
 
 

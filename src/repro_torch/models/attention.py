@@ -7,8 +7,8 @@ The PyTorch counterpart of ``repro/models/attention.py``.  Activations are
 writes the new K/V into the cache tensors in place (a full-size pool is too
 large to copy per layer and step) and returns the same cache.  The flash
 path goes through the hand-written CUDA kernel
-(``kernels/flash_attention``); chunked prefill stays on the masked
-``_sdpa`` path, as in the reference.
+(``kernels/flash_attention``); chunked prefill and speculative verify stay
+on the masked ``_sdpa`` path, as in the reference.
 """
 from __future__ import annotations
 
@@ -21,8 +21,8 @@ from .layers import apply_rope, init_linear, init_rms_norm, linear, rms_norm
 
 __all__ = ["init_attention", "attention_fwd", "attention_decode", "KVCache",
            "PagedKVCache", "attention_decode_paged",
-           "attention_prefill_chunk_paged", "init_kv_cache",
-           "init_paged_kv_cache"]
+           "attention_verify_paged", "attention_prefill_chunk_paged",
+           "init_kv_cache", "init_paged_kv_cache"]
 
 #: sequences at least this long take the chunked online-softmax path when
 #: flash is off (and the lengths divide into its chunks)
@@ -264,6 +264,43 @@ def attention_decode_paged(p: dict, x: torch.Tensor, cache: PagedKVCache,
     v_log = cache.v[table.long()].reshape(b, cap, *cache.v.shape[2:])
     out = _attend_decode(q, k_log, v_log, pos_vec, cfg)
     y = linear(p["wo"], out.reshape(b, 1, -1))
+    return y, cache
+
+
+def attention_verify_paged(p: dict, x: torch.Tensor, cache: PagedKVCache,
+                           table: torch.Tensor, pos, cfg: ModelConfig
+                           ) -> tuple[torch.Tensor, PagedKVCache]:
+    """Batched multi-token decode for speculative verification: ``c`` query
+    tokens per sequence at absolute positions ``pos[b] .. pos[b]+c-1``, each
+    batch row through its own block table, written into the pool in place.
+    Row ``i`` of sequence ``b`` attends logical columns ``j <= pos[b]+i``
+    (within the sliding window), so with ``c == 1`` this is the masked path
+    of :func:`attention_decode_paged`.  x: [B, c, D]; table: [B, max_blocks];
+    pos: [B].  Requires ``pos[b] + c <= cap`` for live rows; inactive rows
+    carry an all-sink table row (their writes land in block 0, never
+    unmasked).  Always the masked ``_sdpa`` path, as in the reference."""
+    b, c, _ = x.shape
+    bs = cache.k.shape[1]
+    tbl = table.long()
+    cap = tbl.shape[1] * bs
+    hd = cfg.resolved_head_dim
+    pos_vec = _pos_vec(pos, b, x.device)
+    rows = pos_vec[:, None] + torch.arange(c, device=x.device)[None, :]
+    q, k_new, v_new = _project_qkv(p, x, cfg, rows)
+    slot = rows % cap
+    blk = torch.gather(tbl, 1, slot // bs)                     # [B, c]
+    off = slot % bs
+    cache.k[blk, off] = k_new.to(cache.k.dtype)
+    cache.v[blk, off] = v_new.to(cache.v.dtype)
+    k_log = cache.k[tbl].reshape(b, cap, *cache.k.shape[2:])
+    v_log = cache.v[tbl].reshape(b, cap, *cache.v.shape[2:])
+    j = torch.arange(cap, device=x.device)[None, None, :]
+    r = rows[:, :, None]
+    valid = j <= r
+    if cfg.sliding_window is not None:
+        valid &= r - j < cfg.sliding_window
+    out = _sdpa(q, k_log, v_log, valid, hd ** -0.5)
+    y = linear(p["wo"], out.reshape(b, c, -1))
     return y, cache
 
 

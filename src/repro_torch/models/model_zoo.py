@@ -32,14 +32,30 @@ class Model:
     #   decode_step_paged(params, token, cache, table, pos)
     #   insert_prefill_paged(cache, dense_cache_B1, table_row, slot)
     #   prefill_chunk_paged(params, batch, cache, table_row, start)
+    #   verify_paged(params, tokens_Bc, cache, table, pos): speculative
+    #     verification, all-position logits for c tokens per sequence
+    #     (attention trunks only: RWKV state is not positional, so rejected
+    #     draft state could not be rolled back)
     init_paged_cache: Optional[Callable[..., Any]] = None
     decode_step_paged: Optional[Callable[..., tuple]] = None
     insert_prefill_paged: Optional[Callable[..., Any]] = None
     prefill_chunk_paged: Optional[Callable[..., tuple]] = None
+    verify_paged: Optional[Callable[..., tuple]] = None
 
     @property
     def supports_paged(self) -> bool:
         return self.decode_step_paged is not None
+
+    @property
+    def supports_speculation(self) -> bool:
+        """Can act as a speculative-decoding *target* (paged verify path)."""
+        return self.verify_paged is not None
+
+    @property
+    def supports_drafting(self) -> bool:
+        """Can act as a *draft* model: a standalone contiguous cache and
+        decode step."""
+        return self.init_cache is not None
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
@@ -82,4 +98,6 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
                                                 cfg),
         prefill_chunk_paged=lambda p, b, cache, row, start:
             transformer.lm_prefill_chunk_paged(p, b, cache, row, start, cfg),
+        verify_paged=lambda p, toks, cache, table, pos:
+            transformer.lm_verify_paged(p, toks, cache, table, pos, cfg),
     )

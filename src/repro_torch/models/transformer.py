@@ -3,8 +3,8 @@
 The PyTorch counterpart of ``repro/models/transformer.py``.  Parameters keep
 the reference's layer-stacked ``[L, ...]`` leaves; the reference's
 ``lax.scan`` over layers is a Python loop that takes layer ``l``'s views.
-KV caches are written in place (see ``attention``).  VLM and speculative
-verification are not yet ported.
+KV caches are written in place (see ``attention``).  The VLM trunk is not
+yet ported.
 """
 from __future__ import annotations
 
@@ -15,7 +15,8 @@ import torch
 from ..configs.base import ModelConfig
 from .attention import (KVCache, PagedKVCache, attention_decode,
                         attention_decode_paged, attention_fwd,
-                        attention_prefill_chunk_paged, init_attention,
+                        attention_prefill_chunk_paged,
+                        attention_verify_paged, init_attention,
                         init_kv_cache, init_paged_kv_cache)
 from .layers import (dtype_of, embed, init_embedding, init_linear, init_mlp,
                      init_rms_norm, linear, mlp, rms_norm)
@@ -23,7 +24,8 @@ from .moe import init_moe, moe_fwd
 
 __all__ = ["init_lm", "lm_prefill", "lm_decode_step", "init_lm_cache",
            "init_lm_paged_cache", "lm_decode_step_paged",
-           "lm_prefill_chunk_paged", "lm_insert_prefill_paged"]
+           "lm_prefill_chunk_paged", "lm_verify_paged",
+           "lm_insert_prefill_paged"]
 
 
 def _is_moe(cfg: ModelConfig) -> bool:
@@ -221,6 +223,25 @@ def lm_prefill_chunk_paged(params: dict, batch: dict, cache: PagedKVCache,
         x = h + _ffn(p, rms_norm(p["ln2"], h, cfg.norm_eps), cfg)
     x = rms_norm(params["ln_f"], x, cfg.norm_eps)
     return _unembed(params, x[:, -1:], cfg), cache
+
+
+def lm_verify_paged(params: dict, tokens: torch.Tensor, cache: PagedKVCache,
+                    table: torch.Tensor, pos, cfg: ModelConfig):
+    """Speculative verification step: run ``c`` tokens per sequence
+    (``tokens`` [B, c]: the last accepted token, then the draft's proposals)
+    through the pool at positions ``pos[b] .. pos[b]+c-1`` and return
+    **all-position** logits [B, c, V] (row ``i`` decides whether draft token
+    ``i+1`` is accepted) and the pool, written in place."""
+    x = embed(params["embed"], tokens)
+    for i in range(cfg.num_layers):
+        p = _layer(params["blocks"], i)
+        attn, _ = attention_verify_paged(
+            p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps),
+            PagedKVCache(cache.k[i], cache.v[i]), table, pos, cfg)
+        h = x + attn
+        x = h + _ffn(p, rms_norm(p["ln2"], h, cfg.norm_eps), cfg)
+    x = rms_norm(params["ln_f"], x, cfg.norm_eps)
+    return _unembed(params, x, cfg), cache
 
 
 def lm_insert_prefill_paged(cache: PagedKVCache, dense: KVCache,

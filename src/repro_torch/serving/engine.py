@@ -19,10 +19,14 @@ Two KV layouts (``kv_mode``):
 * ``"contiguous"``: the dense per-slot ``[L, B, S_max, ...]`` cache (the
   equality-gate baseline).
 
+Speculative decoding (``speculator``, paged only): a draft model proposes
+and this model verifies, each step between prefill and plain decode
+(``serving.speculative``).
+
 The reference jits per prompt length; the port runs eagerly.  The model's
-functions update the KV caches in place.  Not yet ported: speculative
-decoding (``speculator`` must be None) and KV migration with cluster steals
-(a stolen partially-prefilled request restarts its prefill on the thief).
+functions update the KV caches in place.  Not yet ported: KV migration with
+cluster steals (a stolen partially-prefilled request restarts its prefill on
+the thief).
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from ..core.strategy import MergePolicy
 from ..models.model_zoo import Model
 from .paged_kv import (BlockAllocator, PoolExhausted, SINK_BLOCK,
                        prefix_block_keys)
+from .speculative import Speculator
 
 __all__ = ["ServingEngine"]
 
@@ -54,10 +59,7 @@ class ServingEngine:
                  admission: str = "strategy",
                  prefix_cache: bool = False,
                  overflow: str = "reject",
-                 speculator: Any = None):
-        if speculator is not None:
-            raise NotImplementedError("speculative decoding is not yet "
-                                      "ported to repro_torch")
+                 speculator: Optional[Speculator] = None):
         if kv_mode not in ("auto", "paged", "contiguous"):
             raise ValueError(f"unknown kv_mode {kv_mode!r}")
         if overflow not in ("reject", "truncate", "allow"):
@@ -153,6 +155,11 @@ class ServingEngine:
         else:
             self.cache = model.init_cache(max_batch, s_max)
             self._decode = model.decode_step
+        # speculative decoding: a draft model proposes, this model verifies
+        # (attach validates the pairing: paged target, matching vocab)
+        self.speculator = speculator
+        if speculator is not None:
+            speculator.attach(self)
 
     # -- client API ----------------------------------------------------------
     def _fit_or_raise(self, prompt_len: int, max_new: int,
@@ -266,6 +273,8 @@ class ServingEngine:
     def _release(self, rid: int) -> None:
         if self.paged:
             self.alloc.release(rid)
+        if self.speculator is not None:
+            self.speculator.drop_request(rid)
         self._stat_seen.discard(rid)
         self._keys.pop(rid, None)
 
@@ -388,6 +397,85 @@ class ServingEngine:
             self._table_dirty = True
         return True
 
+    # -- speculative decoding primitives --------------------------------------
+    def _spec_reserve(self, req: Request, slot: int, k: int) -> bool:
+        """Reserve KV for one speculation round of ``slot``: blocks to
+        cover positions ``[0, pos + k + 1)`` plus COW forks of every block
+        the verify write range ``[pos, pos + k]`` touches, so a rejected
+        draft can never land in a published/shared prefix block.  Strictly
+        opportunistic: NO preemption; on pool exhaustion the growth is
+        rolled back (``truncate``) and the round is shed."""
+        pos = int(self.slot_pos[slot])
+        if pos + k + 1 > self.cap:
+            return False                 # verify's no-wrap contract
+        before = self.alloc.allocated_tokens(req.rid)
+        try:
+            self.alloc.ensure(req.rid, pos + k + 1)
+        except PoolExhausted:
+            return False
+        bs = self.block_size
+        for j in range(pos // bs, (pos + k) // bs + 1):
+            try:
+                fork = self.alloc.prepare_write(req.rid, j)
+            except PoolExhausted:
+                self.alloc.truncate(req.rid, max(pos + 1, before))
+                return False
+            if fork is not None:
+                self._copy_block(*fork)
+                self._table_dirty = True
+        return True
+
+    def _apply_accepted(self, slot: int, accepted: List[int]
+                        ) -> Tuple[int, bool]:
+        """Commit a verify round's accepted tokens to ``slot`` exactly as
+        sequential decode steps would (EOS / budget checked per token), then
+        roll the block table back to the committed length: rejected draft
+        blocks return to the pool, published prefix blocks are untouched.
+        Returns ``(tokens_applied, finished)``."""
+        req = self.slot_req[slot]
+        applied = 0
+        finished = False
+        for tok in accepted:
+            self.outputs[req.rid].append(tok)
+            applied += 1
+            self.batcher.complete_decode([req])
+            if (self.eos is not None and tok == self.eos) or \
+                    req.generated >= req.max_new_tokens:
+                finished = True
+                break
+        self.slot_pos[slot] += applied
+        self.last_token[slot, 0] = accepted[applied - 1]
+        if finished:
+            req.state = RequestState.DONE
+            req.finished_at = time.monotonic()
+            self._clear_slot(req)
+            self._release(req.rid)
+        else:
+            # stale KV past this point stays in the kept tail block but is
+            # overwritten before any mask exposes it; whole stale blocks go
+            # back to the pool
+            self.alloc.truncate(req.rid, int(self.slot_pos[slot]))
+        return applied, finished
+
+    @property
+    def spec_stats(self) -> Dict[str, Any]:
+        """Speculation counters."""
+        m = self.batcher.metrics
+        drafted = m.get("spec_drafted", 0)
+        accepted = m.get("spec_accepted", 0)
+        return {
+            "enabled": self.speculator is not None,
+            "rounds": m.get("spec_rounds", 0),
+            "drafted": drafted,
+            "accepted": accepted,
+            "wasted": m.get("spec_wasted", 0),
+            "shed": m.get("spec_shed", 0),
+            "merged_drafts": m.get("spec_merged_drafts", 0),
+            "verify_calls": m.get("spec_verify_calls", 0),
+            "warms": m.get("spec_warms", 0),
+            "acceptance_rate": accepted / drafted if drafted else 0.0,
+        }
+
     # -- engine loop ----------------------------------------------------------
     def _free_slot(self) -> Optional[int]:
         for i, r in enumerate(self.slot_req):
@@ -402,6 +490,10 @@ class ServingEngine:
                 if self.paged:
                     self.table[i, :] = SINK_BLOCK
                     self._table_dirty = True
+                if self.speculator is not None:
+                    # in-flight speculation dies with the slot: a preempted
+                    # request resumes non-speculatively
+                    self.speculator.on_clear(i)
 
     def _insert_contiguous(self, slot: int, cache_one) -> None:
         ax = self.batch_axis
@@ -508,7 +600,8 @@ class ServingEngine:
 
     def step(self) -> int:
         """One engine step: evict, admit+prefill (possibly chunked),
-        decode.  Returns the number of active slots stepped."""
+        speculate, decode.  Returns the number of slots stepped (plain and
+        speculative)."""
         plan: BatchPlan = self.batcher.plan_step()
         for req in plan.evicted:
             self._clear_slot(req)
@@ -518,9 +611,15 @@ class ServingEngine:
             self._pending_prefill.remove(req)
             self._run_prefill(req, plan.prefill_chunks.get(
                 req.rid, req.remaining_prefill))
+        # speculation round first: handled slots emit their tokens through
+        # draft/verify and skip plain decode this step
+        handled: set = set()
+        if self.speculator is not None:
+            handled = self.speculator.round(self)
         # decode every occupied slot at its OWN position (continuous
         # batching mixes depths)
-        active = [i for i, r in enumerate(self.slot_req) if r is not None]
+        active = [i for i, r in enumerate(self.slot_req)
+                  if r is not None and i not in handled]
         if self.paged:
             # the next write position may cross into a new block
             for i in list(active):
@@ -532,7 +631,8 @@ class ServingEngine:
                     self._preempt_running(req)   # pool starved: recompute
                 elif self.prefix_cache and not self._cow_for_write(req, i):
                     self._preempt_running(req)   # fork needed, pool starved
-            active = [i for i, r in enumerate(self.slot_req) if r is not None]
+            active = [i for i, r in enumerate(self.slot_req)
+                      if r is not None and i not in handled]
         if active:
             pos_vec = torch.as_tensor(self.slot_pos, device=self.device)
             tokens = torch.as_tensor(self.last_token, device=self.device)
@@ -567,7 +667,7 @@ class ServingEngine:
                     req.finished_at = time.monotonic()
                     self._clear_slot(req)
                     self._release(req.rid)
-        return len(active)
+        return len(active) + len(handled)
 
     def run_until_drained(self, max_steps: int = 10_000
                           ) -> Dict[int, List[int]]:

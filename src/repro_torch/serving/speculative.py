@@ -1,0 +1,574 @@
+"""Speculative decoding as composed scheduling strategies.
+
+The PyTorch counterpart of ``repro/serving/speculative.py``.  Its strategy
+half, from ``SPEC_METRIC_KEYS`` to ``_SlotState``, is a copy of the
+reference's, byte for byte: draft and verify tasks are pushed into a
+:class:`~repro_torch.core.task_storage.StrategyTaskStorage` and run in the
+order the strategy composition produces.  Verify tasks (priority class -1)
+outrank requests, requests outrank drafts; drafts merge under the shared
+:class:`~repro_torch.core.strategy.MergePolicy`, are stolen first, and are
+the first work shed under pool pressure.
+
+:class:`Speculator` is a port: the draft model is a second zoo model with a
+contiguous cache (one row per engine slot, rewound by pointer), its steps
+run eagerly, and the target verifies ``[last_token, d_1..d_k]`` in one
+batched bottom-right-causal call (``Model.verify_paged``).  Greedy
+contract: the accepted stream is the target's greedy stream.  Rejected KV
+is rolled back through the paged allocator; the engine forks shared blocks
+before verify writes into them (``ServingEngine._spec_reserve``).
+"""
+from __future__ import annotations
+
+import itertools
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+import numpy as np
+import torch
+
+from ..core.device.request_scheduler import RequestStrategy
+from ..core.strategy import MergePolicy, PriorityStrategy
+from ..core.task import FinishRegion, Task
+from ..core.task_storage import StrategyTaskStorage
+from ..models.model_zoo import Model
+from .paged_kv import SINK_BLOCK
+
+__all__ = ["Speculator", "SpecStrategy", "DraftStrategy", "VerifyStrategy",
+           "accept_longest_prefix", "SPEC_METRIC_KEYS", "SPEC_KEY_ARITY"]
+
+#: engine metric counters seeded into ``batcher.metrics`` by ``attach``
+SPEC_METRIC_KEYS = ("spec_rounds", "spec_drafted", "spec_accepted",
+                    "spec_wasted", "spec_shed", "spec_merged_drafts",
+                    "spec_verify_calls", "spec_warms")
+
+#: priority classes (first tuple element; compare against request
+#: priorities which are typically small non-negative floats)
+_VERIFY_CLASS = -1.0
+_DRAFT_CLASS = float(2 ** 40)
+
+#: arity of the spec-task priority tuple — MUST match
+#: ``RequestStrategy._key`` so spec and request tasks compose in one
+#: storage without mixed-shape comparisons (checked at import below)
+SPEC_KEY_ARITY = 3
+
+
+def _assert_spec_key_compat() -> None:
+    """The shape-compat contract the PR-6 design hand-maintained, made
+    explicit: ``SpecStrategy`` priorities are ``SPEC_KEY_ARITY``-tuples and
+    ``RequestStrategy._key`` must produce tuples of the same arity, or a
+    mixed storage would compare priorities element-wise across different
+    key layouts (silently corrupting heap order, or raising mid-heap-op).
+    ``repro.analysis.schedlint`` runs the full-cohort version of this."""
+    arity = RequestStrategy.key_arity()
+    if arity != SPEC_KEY_ARITY:
+        raise AssertionError(
+            f"priority-key shape drift: RequestStrategy._key produces "
+            f"{arity}-tuples but spec strategies build "
+            f"{SPEC_KEY_ARITY}-tuples; composed draft/verify/request "
+            f"ordering would be undefined — update SPEC_KEY_ARITY and the "
+            f"SpecStrategy key layout together")
+
+
+_assert_spec_key_compat()
+
+_spec_seq = itertools.count()
+
+
+def accept_longest_prefix(draft: Sequence[int],
+                          target: Sequence[int]) -> Tuple[List[int], int]:
+    """Greedy accept rule.  ``draft`` is ``[d_1..d_k]``; ``target`` is the
+    verifier's greedy choice at each of the ``k+1`` verified positions
+    (``t_0`` follows the last committed token, ``t_j`` follows ``d_j``).
+    Returns ``(accepted, matched)`` where ``accepted = [t_0..t_matched]``
+    (``matched`` drafts plus one correction/bonus token — always >= 1
+    token, so a speculation round never falls behind plain decode)."""
+    matched = 0
+    for d, t in zip(draft, target):
+        if d != t:
+            break
+        matched += 1
+    return [int(t) for t in target[:matched + 1]], matched
+
+
+class SpecStrategy(PriorityStrategy):
+    """Common base of draft/verify strategies: the LCA under which their
+    cross-type order (and their order against spec tasks of the other kind)
+    is decided.  ``shed=True`` marks the task dead — the storage prunes it
+    on sight, the paper's cancellation path reused for load shedding."""
+
+    __slots__ = ("slot", "steal_class", "shed")
+
+    def __init__(self, cls_key: float, steal_class: float, slot: int,
+                 weight: int, allow_calls: bool = False):
+        key = (cls_key, np.inf, float(next(_spec_seq)))
+        assert len(key) == SPEC_KEY_ARITY
+        super().__init__(priority=key,
+                         transitive_weight=weight, allow_calls=allow_calls)
+        self.slot = slot
+        self.steal_class = steal_class
+        self.shed = False
+
+    def is_dead(self) -> bool:
+        return self.shed
+
+    def steal_prioritize(self, other) -> bool:
+        if isinstance(other, SpecStrategy):
+            if self.steal_class != other.steal_class:
+                # smaller steal_class stolen first: drafts are cheap to
+                # lose, verifies are steal-resistant
+                return self.steal_class < other.steal_class
+            return self.spawn_seq < other.spawn_seq
+        return super().steal_prioritize(other)
+
+
+class DraftStrategy(SpecStrategy):
+    """A draft unit: ``kind="warm"`` (prefill the request's context into
+    the draft cache) or ``kind="propose"`` (chain ``k`` greedy draft
+    tokens).  Proposes merge under the MergePolicy into one batched chain
+    run — spawn-to-call for the single-step warm rides along free."""
+
+    __slots__ = ("kind", "k")
+
+    def __init__(self, kind: str, slot: int, k: int = 1):
+        super().__init__(_DRAFT_CLASS, steal_class=0.0, slot=slot,
+                         weight=max(1, k), allow_calls=True)
+        self.kind = kind
+        self.k = k
+
+
+class VerifyStrategy(SpecStrategy):
+    """A pending verification of ``k`` proposed tokens: highest priority
+    class in the storage, stolen last among spec tasks."""
+
+    __slots__ = ("proposals",)
+
+    def __init__(self, slot: int, proposals: List[int]):
+        super().__init__(_VERIFY_CLASS, steal_class=1.0, slot=slot,
+                         weight=len(proposals) + 1)
+        self.proposals = proposals
+
+    @property
+    def k(self) -> int:
+        return len(self.proposals)
+
+
+class _AdaptiveK:
+    """Per-request speculation depth from a running acceptance-rate EMA:
+    deep speculation on requests the draft predicts well, shallow (cheap)
+    on ones it does not."""
+
+    __slots__ = ("k0", "k_min", "k_max", "alpha", "raise_at", "lower_at",
+                 "_k", "_ema")
+
+    def __init__(self, k0: int, k_min: int, k_max: int, alpha: float = 0.5,
+                 raise_at: float = 0.8, lower_at: float = 0.3):
+        self.k0 = k0
+        self.k_min = k_min
+        self.k_max = k_max
+        self.alpha = alpha
+        self.raise_at = raise_at
+        self.lower_at = lower_at
+        self._k: Dict[int, int] = {}
+        self._ema: Dict[int, float] = {}
+
+    def k_for(self, rid: int) -> int:
+        return self._k.get(rid, self.k0)
+
+    def rate(self, rid: int) -> float:
+        return self._ema.get(rid, 0.0)
+
+    def update(self, rid: int, matched: int, k: int) -> None:
+        r = matched / k if k else 0.0
+        prev = self._ema.get(rid)
+        ema = r if prev is None else self.alpha * r + (1 - self.alpha) * prev
+        self._ema[rid] = ema
+        kk = self.k_for(rid)
+        if ema >= self.raise_at:
+            kk += 1
+        elif ema <= self.lower_at:
+            kk -= 1
+        self._k[rid] = min(self.k_max, max(self.k_min, kk))
+
+    def drop(self, rid: int) -> None:
+        self._k.pop(rid, None)
+        self._ema.pop(rid, None)
+
+
+class _SlotState:
+    """Draft-cache state of one engine slot.  ``written`` counts context
+    tokens whose KV the draft cache row holds (positions ``[0, written)``);
+    the propose script re-feeds ``context[written:]`` before chaining, so
+    plain-decoded tokens between rounds just lengthen the resync."""
+
+    __slots__ = ("rid", "warm", "written")
+
+    def __init__(self):
+        self.rid = -1
+        self.warm = False
+        self.written = 0
+
+    def reset(self, rid: int = -1) -> None:
+        self.rid = rid
+        self.warm = False
+        self.written = 0
+
+
+class Speculator:
+    """Draft/verify orchestrator attached to one :class:`ServingEngine`.
+
+    ``draft_model``/``draft_params`` must be a pure-attention zoo model
+    (positional contiguous KV, so rewindable) on the engine's device, with
+    the same vocab as the target.  ``k`` is the initial speculation depth,
+    adapted per request within ``[k_min, k_max]`` when ``adaptive``."""
+
+    def __init__(self, draft_model: Model, draft_params, *, k: int = 4,
+                 k_min: int = 1, k_max: int = 8, adaptive: bool = True,
+                 merge_policy: Optional[MergePolicy] = None,
+                 place_id: int = 1):
+        if k < 1:
+            raise ValueError("spec depth k must be >= 1")
+        if not (1 <= k_min <= k <= k_max):
+            raise ValueError(f"need 1 <= k_min <= k <= k_max, got "
+                             f"[{k_min}, {k}, {k_max}]")
+        if draft_model.cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(
+                f"draft family {draft_model.cfg.family!r} has no positional "
+                "contiguous KV cache: rejected draft state could not be "
+                "rolled back (use a pure-attention draft)")
+        if not draft_model.supports_drafting:
+            raise ValueError("draft model has no standalone decode cache")
+        self.draft_model = draft_model
+        self.draft_params = draft_params
+        self.adaptive = adaptive
+        self.adapt = _AdaptiveK(k, k_min, k_max)
+        self.merge_policy = merge_policy or MergePolicy()
+        self.storage = StrategyTaskStorage(place_id, on_prune=self._on_prune)
+        self._region = FinishRegion()
+        self.engine = None
+        self.cache = None
+        self._state: List[_SlotState] = []
+        #: rid -> [drafted, accepted] running totals (popped by
+        #: ``take_record``)
+        self._per_req: Dict[int, List[int]] = {}
+
+    # -- wiring ---------------------------------------------------------------
+    def attach(self, engine) -> None:
+        """Bind to ``engine`` (called from ``ServingEngine.__init__``):
+        validate the pairing, build the per-slot draft cache on the engine's
+        device, bind the three model entry points, seed the spec metric
+        counters."""
+        if not engine.paged:
+            raise ValueError("speculative decoding needs kv_mode='paged' "
+                             "(rollback is block-table surgery)")
+        if not engine.model.supports_speculation:
+            raise ValueError(
+                f"target family {engine.model.cfg.family!r} has no "
+                "verify_paged path")
+        dv = self.draft_model.cfg.vocab_size
+        tv = engine.model.cfg.vocab_size
+        if dv != tv:
+            raise ValueError(
+                f"draft vocab {dv} != target vocab {tv}: greedy token ids "
+                "would not be comparable")
+        if self.draft_model.device != engine.device:
+            raise ValueError(f"draft model on {self.draft_model.device}, "
+                             f"engine on {engine.device}")
+        self.engine = engine
+        n_slots = len(engine.slot_req)
+        self.cache = self.draft_model.init_cache(n_slots, engine.s_max)
+        self._state = [_SlotState() for _ in range(n_slots)]
+        self._decode = self.draft_model.decode_step
+        s_max = engine.s_max
+        self._prefill = lambda p, b: self.draft_model.prefill(p, b, s_max)
+        self._verify = engine.model.verify_paged
+        for key in SPEC_METRIC_KEYS:
+            engine.batcher.metrics.setdefault(key, 0)
+
+    def _on_prune(self, task: Task) -> None:
+        """Storage pruned a shed draft (the load-shedding path)."""
+        if self.engine is not None:
+            self.engine.batcher.metrics["spec_shed"] += 1
+
+    # -- engine hooks ---------------------------------------------------------
+    def on_clear(self, slot: int) -> None:
+        """Slot vacated (finish / preemption): in-flight speculation state
+        dies with it; the request resumes non-speculatively until
+        re-warmed."""
+        if self._state:
+            self._state[slot].reset()
+
+    def drop_request(self, rid: int) -> None:
+        """Request released: forget its adaptive-k state (the per-request
+        accept record survives until ``take_record`` collects it)."""
+        self.adapt.drop(rid)
+        while len(self._per_req) > 4096:     # bound: un-collected records
+            self._per_req.pop(next(iter(self._per_req)))
+
+    def take_record(self, rid: int) -> Optional[Tuple[int, int]]:
+        """Pop ``(drafted, accepted)`` totals for a finished request."""
+        rec = self._per_req.pop(rid, None)
+        return (rec[0], rec[1]) if rec is not None else None
+
+    # -- context helpers ------------------------------------------------------
+    def _context(self, engine, rid: int) -> np.ndarray:
+        out = engine.outputs.get(rid) or []
+        return np.concatenate(
+            [engine.prompts[rid], np.asarray(out, np.int32)]) \
+            if out else np.asarray(engine.prompts[rid], np.int32)
+
+    def _push(self, strategy: SpecStrategy) -> Task:
+        task = Task(lambda: None, (), {}, strategy, self._region)
+        self.storage.push(task)
+        return task
+
+    # -- the round ------------------------------------------------------------
+    def round(self, engine) -> Set[int]:
+        """One speculation round, run from ``ServingEngine.step`` between
+        prefill and plain decode.  Pushes draft/verify tasks for every
+        eligible slot, then drains the storage in composed-strategy order
+        (verifies always first).  Returns the slots whose decode this step
+        was handled speculatively (>= 1 token each)."""
+        handled: Set[int] = set()
+        metrics = engine.batcher.metrics
+        drafts: List[Task] = []
+        for slot, req in enumerate(engine.slot_req):
+            if req is None:
+                continue
+            st = self._state[slot]
+            if st.rid != req.rid:
+                st.reset(req.rid)
+            budget = req.max_new_tokens - req.generated
+            if budget < 2:
+                continue                  # plain decode finishes it anyway
+            if not st.warm:
+                drafts.append(self._push(DraftStrategy("warm", slot)))
+                continue
+            k = self.adapt.k_for(req.rid) if self.adaptive else self.adapt.k0
+            # never speculate past the budget or the KV ring (verify's
+            # no-wrap contract: pos + k + 1 <= cap)
+            k = min(k, budget - 1,
+                    engine.cap - int(engine.slot_pos[slot]) - 1)
+            if k < 1:
+                continue
+            req.spec_k = k
+            drafts.append(self._push(DraftStrategy("propose", slot, k=k)))
+        # pool pressure: shed every draft BEFORE spending compute on it;
+        # verify tasks are never shed
+        if drafts and engine.alloc.num_free + engine.alloc.num_cached == 0:
+            for t in drafts:
+                t.strategy.shed = True
+        carry: Optional[Task] = None
+        while True:
+            task = carry if carry is not None else self.storage.pop_local()
+            carry = None
+            if task is None:
+                break
+            strat = task.strategy
+            if isinstance(strat, VerifyStrategy):
+                verifies = [strat]
+                while True:
+                    nxt = self.storage.pop_local()
+                    if nxt is None:
+                        break
+                    if isinstance(nxt.strategy, VerifyStrategy):
+                        verifies.append(nxt.strategy)
+                    else:
+                        carry = nxt       # a draft popped: handle after
+                        break
+                handled |= self._verify_round(engine, verifies)
+                continue
+            if strat.kind == "warm":
+                self._warm(engine, strat.slot)
+                metrics["spec_warms"] += 1
+                continue
+            # propose: merge waiting proposes into one batched chain run
+            chunk = self.merge_policy.chunk_size(
+                self.storage.ready_count + 1, len(engine.slot_req))
+            group = [strat]
+            while len(group) < chunk:
+                nxt = self.storage.pop_local()
+                if nxt is None:
+                    break
+                s2 = nxt.strategy
+                if isinstance(s2, DraftStrategy) and s2.kind == "propose":
+                    group.append(s2)
+                else:
+                    carry = nxt
+                    break
+            if len(group) > 1:
+                metrics["spec_merged_drafts"] += len(group) - 1
+            for slot, proposals in self._propose(engine, group):
+                self._push(VerifyStrategy(slot, proposals))
+        return handled
+
+    # -- draft side -----------------------------------------------------------
+    def _warm(self, engine, slot: int) -> None:
+        """Prefill the request's committed context (all but the last,
+        still-unwritten token, mirroring the engine's own cache state) into
+        the draft cache row."""
+        req = engine.slot_req[slot]
+        if req is None:
+            return
+        ctx = self._context(engine, req.rid)
+        warm_ctx = ctx[:-1]
+        if len(warm_ctx) == 0 or len(ctx) - 1 + 1 > engine.s_max:
+            return
+        toks = torch.as_tensor(warm_ctx[None, :], dtype=torch.long,
+                               device=engine.device)
+        _, cache_one = self._prefill(self.draft_params, {"tokens": toks})
+        self._insert_draft(slot, cache_one)
+        st = self._state[slot]
+        st.rid = req.rid
+        st.warm = True
+        st.written = len(ctx) - 1
+
+    def _insert_draft(self, slot: int, cache_one) -> None:
+        """Write a one-request cache into the draft cache's row ``slot``
+        (batch on axis 1 of [L, B, S, ...]), in place."""
+        for full, one in zip(self.cache, cache_one):
+            full[:, slot:slot + 1] = one.to(full.dtype)
+
+    def _propose(self, engine,
+                 group: List[DraftStrategy]) -> List[Tuple[int, List[int]]]:
+        """Run one merged batched draft chain for every propose task whose
+        KV reservation succeeds.  Per slot the script is
+        ``context[written:]`` (resync of tokens plain-decoded since the
+        last round) followed by ``k`` chained greedy proposals; the last
+        proposal is fed too, so the draft cache always ends exactly one
+        token behind the context (the warm invariant).  Each step's next
+        tokens come back to the host in one read."""
+        metrics = engine.batcher.metrics
+        live: List[DraftStrategy] = []
+        for s in group:
+            req = engine.slot_req[s.slot]
+            if req is None or not self._state[s.slot].warm:
+                continue
+            if not engine._spec_reserve(req, s.slot, s.k):
+                metrics["spec_shed"] += 1    # opportunistic: never preempts
+                continue
+            live.append(s)
+        if not live:
+            return []
+        n_slots = len(engine.slot_req)
+        # idempotent filler for non-participating rows: re-write the last
+        # written token at its own position (cold rows are garbage until
+        # re-warmed anyway)
+        fill_tok = np.zeros(n_slots, np.int64)
+        fill_pos = np.zeros(n_slots, np.int64)
+        for b in range(n_slots):
+            st = self._state[b]
+            if st.warm and st.written > 0 and engine.slot_req[b] is not None:
+                ctx = self._context(engine, st.rid)
+                if st.written <= len(ctx):
+                    fill_tok[b] = int(ctx[st.written - 1])
+                    fill_pos[b] = st.written - 1
+        script: Dict[int, np.ndarray] = {}
+        k_of: Dict[int, int] = {}
+        fed: Dict[int, int] = {}
+        cur: Dict[int, int] = {}
+        outs: Dict[int, List[int]] = {}
+        base: Dict[int, int] = {}
+        steps = 0
+        for s in live:
+            st = self._state[s.slot]
+            ctx = self._context(engine, st.rid)
+            sc = ctx[st.written:]
+            script[s.slot] = sc
+            k_of[s.slot] = s.k
+            fed[s.slot] = 0
+            cur[s.slot] = int(sc[0])
+            outs[s.slot] = []
+            base[s.slot] = st.written
+            steps = max(steps, len(sc) + s.k)
+        dev = engine.device
+        for _ in range(steps):
+            tok = fill_tok.copy()
+            pos = fill_pos.copy()
+            for s in live:
+                b = s.slot
+                if fed[b] < len(script[b]) + k_of[b]:
+                    tok[b] = cur[b]
+                    pos[b] = base[b] + fed[b]
+            logits, self.cache = self._decode(
+                self.draft_params, torch.as_tensor(tok[:, None], device=dev),
+                self.cache, torch.as_tensor(pos, device=dev))
+            nxt = torch.argmax(logits[:, -1], dim=-1).tolist()
+            for s in live:
+                b = s.slot
+                total = len(script[b]) + k_of[b]
+                if fed[b] >= total:
+                    continue
+                fed[b] += 1
+                if fed[b] < len(script[b]):
+                    cur[b] = int(script[b][fed[b]])
+                else:
+                    if len(outs[b]) < k_of[b]:
+                        outs[b].append(nxt[b])
+                    cur[b] = nxt[b]
+        result = []
+        for s in live:
+            st = self._state[s.slot]
+            st.written = base[s.slot] + len(script[s.slot]) + k_of[s.slot]
+            metrics["spec_drafted"] += k_of[s.slot]
+            result.append((s.slot, outs[s.slot]))
+        return result
+
+    # -- verify side ----------------------------------------------------------
+    def _verify_round(self, engine,
+                      verifies: List[VerifyStrategy]) -> Set[int]:
+        """Verify all pending proposals, grouped by depth (one batched
+        bottom-right-causal target call per distinct ``k``).  Slots not in
+        a group are routed to all-sink table rows so the batched write
+        cannot touch their KV."""
+        handled: Set[int] = set()
+        metrics = engine.batcher.metrics
+        by_k: Dict[int, List[VerifyStrategy]] = {}
+        for v in verifies:
+            if engine.slot_req[v.slot] is None or not v.proposals:
+                continue
+            by_k.setdefault(v.k, []).append(v)
+        n_slots = len(engine.slot_req)
+        dev = engine.device
+        for k, group in sorted(by_k.items()):
+            c = k + 1
+            tokens = np.zeros((n_slots, c), np.int64)
+            pos = np.zeros(n_slots, np.int64)
+            vtable = np.full((n_slots, engine.max_blocks), SINK_BLOCK,
+                             np.int32)
+            last = engine.last_token
+            for v in group:
+                b = v.slot
+                req = engine.slot_req[b]
+                tokens[b, 0] = int(last[b, 0])
+                tokens[b, 1:] = v.proposals
+                pos[b] = int(engine.slot_pos[b])
+                vtable[b] = engine._table_row(req.rid)
+            logits, engine.cache = self._verify(
+                engine.params, torch.as_tensor(tokens, device=dev),
+                engine.cache, torch.as_tensor(vtable, device=dev),
+                torch.as_tensor(pos, device=dev))
+            metrics["spec_verify_calls"] += 1
+            tgt = torch.argmax(logits, dim=-1).tolist()        # [B][c]
+            for v in group:
+                b = v.slot
+                req = engine.slot_req[b]
+                rid = req.rid
+                old_len = int(engine.slot_pos[b]) + 1
+                accepted, matched = accept_longest_prefix(
+                    v.proposals, tgt[b])
+                metrics["spec_rounds"] += 1
+                metrics["spec_accepted"] += matched
+                metrics["spec_wasted"] += v.k - matched
+                rec = self._per_req.setdefault(rid, [0, 0])
+                rec[0] += v.k
+                rec[1] += matched
+                self.adapt.update(rid, matched, v.k)
+                req.spec_accept = self.adapt.rate(rid)
+                applied, finished = engine._apply_accepted(b, accepted)
+                if not finished:
+                    # rewind the draft pointer: its KV matches the context
+                    # through the last *matched* proposal; the correction
+                    # token is fed (and the stale row overwritten) on the
+                    # next round's resync
+                    self._state[b].written = old_len + matched
+                handled.add(b)
+        return handled

@@ -1,6 +1,7 @@
-"""The port as a package: it imports neither JAX nor ``repro``, its entry
-points run on CUDA unless asked for the CPU, the launcher's equality gate
-passes on the CPU, and the weight bridge carries the reference's trees."""
+"""The port as a package: it imports neither JAX nor ``repro``, its copied
+modules equal their references, its entry points run on CUDA unless asked
+for the CPU, the launcher's equality gate passes on the CPU, and the weight
+bridge carries the reference's trees."""
 import ast
 import os
 import pathlib
@@ -27,9 +28,10 @@ SERVE = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
          "--check-paged-equality"]
 
 
-#: modules that must be among those scanned (the MoE slice's and the RWKV
-#: slice's, with the last two kernels)
-REQUIRED = ("repro_torch.core.device.moe_balance", "repro_torch.models.moe",
+#: modules that must be among those scanned (the MoE slice's, the RWKV
+#: slice's with the last two kernels, and speculative decoding's)
+REQUIRED = ("repro_torch.serving.speculative",
+            "repro_torch.core.device.moe_balance", "repro_torch.models.moe",
             "repro_torch.kernels._build", "repro_torch.kernels.moe_gmm",
             "repro_torch.kernels.moe_gmm.ops",
             "repro_torch.kernels.moe_gmm.ref",
@@ -81,6 +83,82 @@ def test_no_jax_or_repro_import_in_source(path):
             assert top not in ("jax", "jaxlib", "repro"), (path, name)
 
 
+COPY_HEADER = "# Copied from src/repro/{}; only the imports may differ.\n"
+COPIES = sorted(p for p in PKG.rglob("*.py")
+                if p.read_text().startswith("# Copied from "))
+
+
+def _without_imports(text: str) -> str:
+    """``text`` without its top-level import statements (whole lines)."""
+    lines = text.splitlines(keepends=True)
+    for node in reversed(ast.parse(text).body):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            del lines[node.lineno - 1:node.end_lineno]
+    return "".join(lines)
+
+
+def test_copies_are_found():
+    names = {str(p.relative_to(PKG)) for p in COPIES}
+    assert {"core/strategy.py", "core/task.py", "core/task_storage.py",
+            "core/device/request_scheduler.py", "serving/paged_kv.py",
+            "configs/base.py"} <= names
+
+
+@pytest.mark.parametrize("path", COPIES,
+                         ids=lambda p: str(p.relative_to(PKG)))
+def test_copy_equals_its_reference(path):
+    """A module headed "Copied from" is its reference, byte for byte, apart
+    from that header and its import lines."""
+    rel = path.relative_to(PKG).as_posix()
+    text = path.read_text()
+    header = COPY_HEADER.format(rel)
+    assert text.startswith(header)
+    ref = (ROOT / "src" / "repro" / rel).read_text()
+    assert _without_imports(text[len(header):]) == _without_imports(ref)
+
+
+#: the strategy half of ``serving/speculative.py``: a copy of the
+#: reference's, byte for byte
+SPEC_COPIED = ("SPEC_METRIC_KEYS", "_VERIFY_CLASS", "_DRAFT_CLASS",
+               "SPEC_KEY_ARITY", "_assert_spec_key_compat", "_spec_seq",
+               "accept_longest_prefix", "SpecStrategy", "DraftStrategy",
+               "VerifyStrategy", "_AdaptiveK", "_SlotState")
+
+
+def _span(text: str, first: str, last: str) -> str:
+    """The source lines from top-level definition ``first`` (with the
+    comments just above it) through the end of ``last``."""
+    def names(node):
+        if isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            return {t.id for t in targets if isinstance(t, ast.Name)}
+        return {getattr(node, "name", None)}
+    body = ast.parse(text).body
+    start = next(n for n in body if first in names(n))
+    end = next(n for n in body if last in names(n))
+    lines = text.splitlines(keepends=True)
+    lo = start.lineno - 1
+    while lo > 0 and lines[lo - 1].startswith("#"):
+        lo -= 1
+    return "".join(lines[lo:end.end_lineno])
+
+
+def test_speculative_strategy_half_is_a_copy():
+    port = (PKG / "serving" / "speculative.py").read_text()
+    ref = (ROOT / "src" / "repro" / "serving" / "speculative.py").read_text()
+    half = _span(port, SPEC_COPIED[0], SPEC_COPIED[-1])
+    assert half == _span(ref, SPEC_COPIED[0], SPEC_COPIED[-1])
+    tree = ast.parse(half)
+    defined = set()
+    for node in tree.body:
+        if isinstance(node, ast.Assign):
+            defined |= {t.id for t in node.targets}
+        elif hasattr(node, "name"):
+            defined.add(node.name)
+    assert defined == set(SPEC_COPIED)
+
+
 def test_launcher_equality_gate_on_cpu():
     out = subprocess.run(SERVE + ["--device", "cpu"], env=ENV, cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
@@ -110,6 +188,27 @@ def test_launcher_equality_gate_on_cpu_rwkv():
         assert f"{mode}: family 'ssm' has no paged path — skip" in out.stdout
 
 
+def test_launcher_spec_gate_on_cpu():
+    """``--spec-draft self`` adds the ``paged+spec`` mode, whose tokens must
+    equal the contiguous engine's."""
+    out = subprocess.run(SERVE + ["--device", "cpu", "--spec-draft",
+                                  "self"], env=ENV, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "paged+spec: 16 tokens" in out.stdout
+    assert "OK: speculative decode == contiguous decode" in out.stdout
+
+
+def test_launcher_spec_draft_vocab_mismatch():
+    """rwkv6-3b's vocab (65536) is not qwen2-1.5b's: exit 2 before any
+    engine is built."""
+    out = subprocess.run(SERVE + ["--device", "cpu", "--spec-draft",
+                                  "rwkv6-3b"], env=ENV, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 2, out.stdout + out.stderr
+    assert "vocab 65536 != target 'qwen2-1.5b' vocab 151936" in out.stderr
+
+
 def test_launcher_without_cuda_fails_loudly():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
@@ -120,7 +219,6 @@ def test_launcher_without_cuda_fails_loudly():
 
 
 @pytest.mark.parametrize("flag", [["--replicas", "2"],
-                                  ["--spec-draft", "self"],
                                   ["--chaos", "kill-one"], ["--autoscale"],
                                   ["--arch", "jamba-v0.1-52b"]])
 def test_launcher_refuses_what_is_not_ported(flag):
