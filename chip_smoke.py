@@ -57,7 +57,27 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    64-1024 tokens, 32 new tokens each; every request done, the allocator's
    invariants hold, logits finite, and flash attention launched in both
    prefill and decode.  Then paged == contiguous on 4 requests.  Then the
-   speculative paths (``phase_spec``) on 8 of those prompts, 32 new tokens:
+   live cluster (``phase_cluster``), on the same model and weights: two
+   ``EngineReplica``s, each a paged engine of its own (max_batch 4, s_max
+   2048, blocks of 16), behind a ``ClusterRouter`` stealing half the work
+   and placing round robin, the 16 prompts arriving one every 2 router
+   steps, 32 new tokens each: first with chunked prefill (chunks of 256),
+   where at least one stolen request must carry its prefix KV and resume
+   past token 0; then with whole-prompt prefill.  Each run: every request
+   done with 32 tokens, ``alloc.check()`` on both engines,
+   ``router.check()``, every launch inside a replica's step (the counts
+   read around each step), flash attention once a layer in every
+   whole-prompt prefill and decode call of each replica and never in a
+   chunk prefill (the masked path, as in the reference), both replicas
+   decoding; tokens/s, steals, migrations, KV migrations, steps per
+   replica and the telemetry's counts printed.  Then the launcher's own
+   gates at full width, as subprocesses: ``--replicas 2 --requests 12
+   --chaos kill-one`` (its OK line, crashes=1, replayed > 0) and
+   ``--replicas 2 --max-replicas 4 --autoscale --requests 16
+   --autoscale-target 128`` (its OK line, ups >= 1; at the default 256
+   this traffic never scales up, in the reference's launcher neither).
+   Then the speculative paths (``phase_spec``) on 8 of those prompts, 32
+   new tokens:
    the plain paged engine, a self draft (k = 4) and a cross draft (the
    same config from --seed + 1, k = 4, adaptive), each served with the
    counts set to 0 just before it and read just after; every request done
@@ -76,6 +96,12 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    identical tokens (a difference passes only as a recorded tie: a top-2
    gap under 1e-5 of the largest |logit|); the self draft accepts all.
    Then the verify probe in fp32, within 1e-4 of the largest |logit|.
+   Then KV migration on the same weights with flash on
+   (``phase_cluster_kv``): a request stolen mid-prefill with its KV (the
+   payload's tensors on the card) emits the tokens of an undisturbed run,
+   at the reference test's shape (s_max 48, chunks and blocks of 8) and at
+   the cluster's (s_max 2048, chunks of 256, blocks of 16, 1200 tokens);
+   a difference passes only as a recorded tie, as above.
 5. main path 2: full-width Mixtral-8x22B cut to 8 of its 56 layers (random
    bf16 weights from --seed), served the same way: 8 requests, prompts of
    64-512 tokens, 16 new tokens each; both kernels launched in both
@@ -112,15 +138,20 @@ pass and, with several splits, the combine pass) and a grouped SwiGLU (its
 two phases) each count once.  ``kernel_launches`` counts the kernels those
 calls launched.
 
-Two lines before the last is the JSON record of the kernels and of the
-speculative phases (``spec``); then the card's name and power limit; the
-last is ``{"ok": true, "device": {...}}``.
+Two lines before the last is the JSON record of the kernels, of the
+speculative phases (``spec``) and of the cluster phases (``cluster``);
+flash attention's rows at qwen2-1.5b's heads count the cluster runs'
+launches too, and list each path's in ``launches_by_path``.  Then the
+card's name and power limit; the last is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
 import argparse
 import gc
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -132,9 +163,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.cluster import (ClusterRouter, ClusterTelemetry,  # noqa: E402
+                                 EngineReplica, StealPolicy)
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.device.request_scheduler import Request  # noqa: E402
 from repro_torch.core.device.moe_balance import (  # noqa: E402
     gather_expert_inputs, priority_dispatch, route_topk)
 from repro_torch.kernels.flash_attention import build, ops  # noqa: E402
@@ -214,6 +249,18 @@ MOE_SELF_ACCEPT_MIN = 0.6
 PROBE_TOL_FP32 = 1e-4
 TIE_REL = 1e-5
 PARTIAL_NOISE = (0.05, 0.1, 0.2, 0.4)
+#: the cluster phase: each replica's engine (the whole qwen2-1.5b, its
+#: weights shared, a paged pool of its own) and the chunk that makes a
+#: partly-prefilled request stealable with its KV; the router steps between
+#: two arrivals; the launcher's autoscale
+#: target: at 16 requests of 4-47 prompt tokens and 16 new, the reference's
+#: default of 256 never scales up (the reference launcher neither), 128
+#: does
+CLUSTER_ENGINE = dict(max_batch=4, s_max=2048, block_size=16,
+                      kv_mode="paged")
+CLUSTER_CHUNK = 256
+ARRIVAL_EVERY = 2
+AUTOSCALE_TARGET = 128
 
 
 def _zero_counts() -> None:
@@ -1010,6 +1057,262 @@ def phase_paged_equals_contiguous(model, params, prompts, s_max) -> None:
           f"{sum(map(len, results['paged']))} identical tokens")
 
 
+def _cluster_serve(model, params, prompts, *, max_new, prefill_chunk,
+                   path) -> dict:
+    """One live cluster run (phase_cluster (a)): two ``EngineReplica``s over
+    ``model`` and its one set of weights, each engine its own paged pool,
+    behind a ``ClusterRouter`` stealing half the work, placing round robin;
+    a request arrives every ``ARRIVAL_EVERY`` router steps (all at once,
+    every replica gets as many requests and as many decode steps, and no
+    replica ever runs dry while another has a queue).
+    Every engine call is wrapped in a ``_Phase`` and every replica step
+    reads the counts before and after, so each launch is attributed to a
+    replica and a phase; the counts are set to 0 just before the run and
+    read just after.  A replica's ``submit`` is wrapped to record each
+    migration: whether its payload carried KV and where its prefill
+    resumed.  Checks: every request DONE with ``max_new`` tokens,
+    ``alloc.check()`` on both engines, ``router.check()``, every launch
+    inside a replica step, flash once a layer in every whole-prompt
+    prefill and decode call of each replica (and never in a chunk prefill:
+    the masked path, as in the reference), both replicas decoding."""
+    engines = [ServingEngine(model, params, prefill_chunk=prefill_chunk,
+                             **CLUSTER_ENGINE) for _ in range(2)]
+    phases = []
+    for eng in engines:
+        ph = {"prefill": _Phase(eng._prefill, "prefill"),
+              "decode": _Phase(eng._decode, "decode")}
+        eng._prefill, eng._decode = ph["prefill"], ph["decode"]
+        if eng._prefill_chunk is not None:
+            ph["prefill_chunk"] = _Phase(eng._prefill_chunk, "prefill_chunk")
+            eng._prefill_chunk = ph["prefill_chunk"]
+        phases.append(ph)
+    replicas = [EngineReplica(i, eng) for i, eng in enumerate(engines)]
+    in_steps = [dict.fromkeys(COUNTERS, 0) for _ in replicas]
+    steps = [0] * len(replicas)
+    moves = []
+    for i, rep in enumerate(replicas):
+        def step(_inner=rep.step, _i=i):
+            n0 = {k: c.launches for k, c in COUNTERS.items()}
+            active = _inner()
+            for k, c in COUNTERS.items():
+                in_steps[_i][k] += c.launches - n0[k]
+            steps[_i] += 1
+            return active
+
+        def submit(req, tokens=None, migrated=False, _inner=rep.submit,
+                   _i=i):
+            _inner(req, tokens, migrated=migrated)
+            if migrated:
+                moves.append(dict(thief=_i, tokens=req.prompt_len,
+                                  kv=isinstance(tokens, dict)
+                                  and "kv" in tokens,
+                                  resumed_at=req.prefilled))
+        rep.step, rep.submit = step, submit
+    router = ClusterRouter(replicas, policy=StealPolicy(
+        amount="half_work", placement="round_robin"),
+        telemetry=ClusterTelemetry(len(replicas)))
+    reqs = []
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    for step in range(100_000):
+        if len(reqs) < len(prompts) and step % ARRIVAL_EVERY == 0:
+            p = prompts[len(reqs)]
+            req = Request(prompt_len=len(p), max_new_tokens=max_new,
+                          priority=float(len(reqs) % 3))
+            router.submit(req, tokens=p)
+            reqs.append(req)
+        router.step()
+        if len(reqs) == len(prompts) and router.drained():
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in COUNTERS.items()}
+    if not router.drained() or \
+            not all(r.state.name == "DONE" for r in reqs):
+        raise AssertionError(f"{path}: not every request finished")
+    for eng in engines:
+        eng.alloc.check()
+    router.check()
+    streams = [[eng.outputs[r.rid] for eng in engines
+                if r.rid in eng.outputs] for r in reqs]
+    if any(len(s) != 1 or len(s[0]) != max_new for s in streams):
+        raise AssertionError(f"{path}: token counts "
+                             f"{[[len(x) for x in s] for s in streams]}")
+    layers = model.cfg.num_layers
+    per_replica = []
+    for i, ph in enumerate(phases):
+        got = {name: p.launches["flash_attention"] for name, p in ph.items()}
+        want = {"prefill": layers * ph["prefill"].calls,
+                "decode": layers * ph["decode"].calls,
+                "prefill_chunk": 0}
+        want = {k: v for k, v in want.items() if k in got}
+        if got != want or ph["decode"].calls == 0 \
+                or in_steps[i] != {k: sum(p.launches[k] for p in ph.values())
+                                   for k in COUNTERS}:
+            raise AssertionError(f"{path} replica {i}: flash launches "
+                                 f"{got}, expected {want}; in its steps "
+                                 f"{in_steps[i]}")
+        per_replica.append(dict(
+            steps=steps[i], launches=in_steps[i],
+            phases={name: dict(calls=p.calls, seconds=p.seconds,
+                               launches=p.launches)
+                    for name, p in ph.items()}))
+    for k in COUNTERS:
+        if launches[k] != sum(r[k] for r in in_steps):
+            raise AssertionError(f"{path}: {k} launched {launches[k]} "
+                                 "times, not all inside replica steps")
+    if prefill_chunk is None and not all(
+            ph["prefill"].calls > 0 for ph in phases):
+        raise AssertionError(f"{path}: a replica ran no flash prefill")
+    summary = router.telemetry.summary()
+    tokens = sum(len(s[0]) for s in streams)
+    stats = dict(
+        path=path, replicas=len(replicas), prefill_chunk=prefill_chunk,
+        requests=len(reqs), tokens=tokens, wall_s=wall,
+        tokens_per_s=tokens / wall, launches=launches,
+        steal_events=summary["steal_events"],
+        requests_migrated=summary["requests_migrated"],
+        chunk_migrations=summary["chunk_migrations"],
+        weight_migrated=summary["weight_migrated"],
+        kv_migrations=sum(m["kv"] and m["resumed_at"] > 0 for m in moves),
+        migrations=moves, per_replica=per_replica,
+        telemetry={k: summary[k] for k in ("finished", "cancelled",
+                                           "rejected", "deadline_misses")},
+        per_class={k: v.get("count") for k, v in
+                   summary["per_class"].items()})
+    print(f"cluster {path}: " + json.dumps(stats))
+    return stats
+
+
+def _launcher(*flags) -> tuple:
+    """``repro_torch.launch.serve`` at full width in a subprocess; its
+    output and seconds.  Fails unless it exits 0."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "qwen2-1.5b", *flags]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"{' '.join(flags)}: exit {out.returncode}\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    return out.stdout, seconds
+
+
+def _count(pattern: str, text: str) -> int:
+    found = re.search(pattern, text)
+    if found is None:
+        raise AssertionError(f"no {pattern!r} in:\n{text[-3000:]}")
+    return int(found.group(1))
+
+
+def phase_cluster(model, params, prompts) -> dict:
+    """(a) live work-stealing between two full-width engines, ``prompts``
+    arriving one every ``ARRIVAL_EVERY`` router steps: chunked prefill
+    (``CLUSTER_CHUNK``), so a stolen request carries its prefix KV
+    (at least one must, and resume past token 0), then the same traffic
+    with whole-prompt prefill, so flash runs in prefill and decode on both
+    replicas; (c) the launcher's own gates at full width, as subprocesses:
+    ``--chaos kill-one`` (crashes=1, replayed > 0) and ``--autoscale``
+    (ups >= 1, at ``AUTOSCALE_TARGET``)."""
+    out = {}
+    chunked = _cluster_serve(model, params, prompts, max_new=32,
+                             prefill_chunk=CLUSTER_CHUNK,
+                             path="qwen2-1.5b cluster chunked")
+    if chunked["requests_migrated"] == 0 or chunked["kv_migrations"] == 0:
+        raise AssertionError("no migration carried prefix KV: "
+                             f"{chunked['migrations']}")
+    out["chunked"] = chunked
+    out["whole"] = _cluster_serve(model, params, prompts, max_new=32,
+                                  prefill_chunk=None,
+                                  path="qwen2-1.5b cluster")
+    text, seconds = _launcher("--replicas", "2", "--requests", "12",
+                              "--chaos", "kill-one")
+    if "OK: chaos/autoscale smoke — 12/12 finished" not in text:
+        raise AssertionError(f"kill-one: no OK line\n{text[-3000:]}")
+    kill = dict(seconds=seconds,
+                crashes=_count(r"chaos: crashes=(\d+)", text),
+                replayed=_count(r"replayed=(\d+)", text),
+                tail=text.strip().splitlines()[-8:])
+    if kill["crashes"] != 1 or kill["replayed"] == 0:
+        raise AssertionError(f"kill-one: {kill}")
+    text, seconds = _launcher("--replicas", "2", "--max-replicas", "4",
+                              "--autoscale", "--requests", "16",
+                              "--autoscale-target", str(AUTOSCALE_TARGET))
+    if "OK: chaos/autoscale smoke — 16/16 finished" not in text:
+        raise AssertionError(f"autoscale: no OK line\n{text[-3000:]}")
+    auto = dict(seconds=seconds, ups=_count(r"autoscale: ups=(\d+)", text),
+                peak=_count(r"peak=(\d+)", text),
+                tail=text.strip().splitlines()[-8:])
+    if auto["ups"] < 1:
+        raise AssertionError(f"autoscale: {auto}")
+    out["launcher"] = {"kill-one": kill, "autoscale": auto}
+    print("cluster launcher: " + json.dumps(out["launcher"]))
+    return out
+
+
+def phase_cluster_kv(model, params, seed) -> list:
+    """(b) the reference's ``test_paged_kv_migrates_with_stolen_chunk_
+    request`` on the card: a request stolen mid-prefill with its prefix KV
+    emits the tokens of an undisturbed single-engine run (a difference
+    passes only as a recorded tie: a top-2 gap under TIE_REL of the
+    largest |logit|).  At the reference's shape (s_max 48, chunks and
+    blocks of 8, a 40-token prompt) and at the cluster's (s_max 2048,
+    chunks of 256, blocks of 16, 1200 tokens)."""
+    rng = np.random.default_rng(seed + 14)
+    vocab = model.cfg.vocab_size
+    out = []
+    for s_max, chunk, bs, n in ((48, 8, 8, 40), (2048, CLUSTER_CHUNK, 16,
+                                                  1200)):
+        kw = dict(s_max=s_max, kv_mode="paged", prefill_chunk=chunk,
+                  block_size=bs)
+        long_p = rng.integers(0, vocab, n)
+        victim = ServingEngine(model, params, max_batch=1, **kw)
+        victim.submit(rng.integers(0, vocab, 4), 2, priority=0.0)
+        req = victim.submit(long_p, 3, priority=1.0)
+        for _ in range(3):
+            victim.step()
+        if not (0 < req.prefilled < n and req.state.name == "WAITING"):
+            raise AssertionError(f"not stolen mid-prefill: {req}")
+        (stolen, payload), = victim.export_waiting(target_weight=10_000)
+        k, v = payload["kv"]
+        if stolen is not req or not (k.is_cuda and v.is_cuda):
+            raise AssertionError("the stolen request's KV did not travel "
+                                 "on the card")
+        victim.alloc.check()
+        thief = ServingEngine(model, params, max_batch=2, **kw)
+        resumed = req.prefilled
+        thief.submit_request(req, payload)
+        if req.prefilled != resumed:
+            raise AssertionError("the thief recomputed the prefix")
+        got = thief.run_until_drained()[req.rid]
+        thief.alloc.check()
+        victim.run_until_drained()
+        ref = ServingEngine(model, params, max_batch=1, **kw)
+        r = ref.submit(long_p, 3, priority=1.0)
+        want = ref.run_until_drained()[r.rid]
+        ties = []
+        j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+        if j is not None:
+            gap, top = _top2_gap(model, params, list(long_p) + want[:j])
+            ties.append(dict(position=j, plain=want[j], migrated=got[j],
+                             gap=gap, max_abs_logit=top))
+            if not gap < TIE_REL * top:
+                raise AssertionError(f"migrated tokens {got} against {want}"
+                                     f": top-2 gap {gap}, max |logit| {top}")
+        if len(got) != 3:
+            raise AssertionError(f"{len(got)} tokens")
+        row = dict(s_max=s_max, chunk=chunk, block_size=bs, prompt=n,
+                   resumed_at=resumed, kv_shape=list(k.shape),
+                   tokens=got, equal=got == want, ties=ties)
+        print("cluster kv: " + json.dumps(row))
+        out.append(row)
+    return out
+
+
 class _GmmTimer:
     """Stands in for ``models.moe.grouped_swiglu`` during a speculative
     run: calls the wrapper and records, by the ``_Phase`` it ran in, the
@@ -1431,6 +1734,7 @@ def main() -> int:
                            kv_mode="paged",
                            kernels={"flash_attention": (True, True)})
     phase_paged_equals_contiguous(model, params, prompts[:4], 2048)
+    cluster = phase_cluster(model, params, prompts)
     spec = dict(probe={})
     cross = model.init(args.seed + 1)
     spec["qwen2-1.5b"] = phase_spec(
@@ -1453,6 +1757,9 @@ def main() -> int:
     model, params = _init(cfg, args.seed)
     spec["qwen2-1.5b_fp32_exact"] = phase_spec_exact(
         model, params, prompts[:4], s_max=2048, max_new=16, seed=args.seed)
+    # KV migration keeps the tokens: the same weights, flash on
+    cluster["kv_exact"] = phase_cluster_kv(
+        build_model(cfg.replace(use_flash=True), "cuda"), params, args.seed)
     spec["probe"]["fp32"] = phase_verify_probe(
         model, params, prompts[:8], s_max=2048, seed=args.seed,
         bound=PROBE_TOL_FP32)
@@ -1502,12 +1809,21 @@ def main() -> int:
 
     # each row carries its kernel's launches on the path it was sized for
     # (the fp32 and synthetic-mask rows: the path whose heads they use)
+    # (the cluster runs: flash's launches under their own path names, and
+    # added into the qwen rows' count)
     by_path = {p["arch"]: p["launches"]
                for p in (qwen, mixtral, rwkv, scan_path)}
+    extra = {cluster[k]["path"]: cluster[k]["launches"]
+             for k in ("chunked", "whole")}
     rows = flash_rows + gmm_rows + wkv_rows + scan_rows
     for row in rows:
         row["launches"] = by_path[row["path"]][row["name"]]
-    print(json.dumps({"kernels": rows, "spec": spec}))
+        if row["path"] == "qwen2-1.5b":
+            row["launches_by_path"] = {
+                row["path"]: row["launches"],
+                **{p: n[row["name"]] for p, n in extra.items()}}
+            row["launches"] += sum(n[row["name"]] for n in extra.values())
+    print(json.dumps({"kernels": rows, "spec": spec, "cluster": cluster}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """Serving launcher: strategy-scheduled continuous batching over paged KV,
-one replica, on the GPU unless ``--device cpu``.
+on the GPU unless ``--device cpu``.
 
 Full-width qwen2-1.5b with random weights on the card:
 
@@ -26,21 +26,36 @@ the ``paged+spec`` mode must generate the contiguous engine's tokens:
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
         --spec-draft self --check-paged-equality
 
-The flags are those of ``repro.launch.serve`` plus ``--device``;
-``--replicas > 1``, ``--chaos`` and ``--autoscale`` are not yet ported and
-exit 2.
+Cluster (``--replicas > 1``): the paper's work-stealing between live
+engines, each with its own paged pool over one shared set of weights; a
+stolen partially-prefilled request carries its prefix KV.  ``--chaos
+kill-one`` kills the busiest engine mid-run (the heartbeat declares it dead
+and its requests replay elsewhere); ``--autoscale`` grows and shrinks the
+fleet from the backlog.  Either exits 1 unless every request finishes, the
+replayed count equals the displaced count and the per-class counts match:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
+        --replicas 2 --requests 12 --chaos kill-one
+
+The flags are those of ``repro.launch.serve`` plus ``--device``.
 """
 from __future__ import annotations
 
 import argparse
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 
+from ..cluster import (ClusterRouter, ClusterTelemetry, EngineReplica,
+                       StealPolicy)
 from ..configs import get_config, scale_down
+from ..core.device.request_scheduler import Request
 from ..device import resolve_device
 from ..models import build_model
+from ..runtime import (Autoscaler, AutoscalePolicy, HeartbeatMonitor,
+                       StragglerDetector)
 from ..serving import ServingEngine, Speculator
 
 
@@ -249,15 +264,166 @@ def _check_paged_equality(args, model, params, cfg, draft=None) -> int:
     return 0
 
 
-def _not_yet_ported(args) -> list:
-    out = []
-    if args.replicas > 1:
-        out.append("--replicas > 1 (cluster serving)")
-    if args.chaos is not None:
-        out.append("--chaos")
+def _serve_cluster(args, model, params, cfg, draft=None) -> int:
+    """The reference's cluster run: ``--replicas`` engines over the one
+    model and its weights, each engine its own paged pool, behind a
+    ``ClusterRouter`` with the ``--steal``/``--placement`` policy.  With
+    ``--chaos`` or ``--autoscale``, the router's heartbeat and straggler
+    tracking and the gates: every submitted request finishes, replayed
+    equals displaced-at-crash, per-class telemetry counts every finish."""
+    def make_engine():
+        return ServingEngine(model, params,
+                             speculator=_make_spec(args, draft),
+                             **_engine_kw(args))
+
+    chaotic = args.chaos is not None or args.autoscale
+    replicas = [EngineReplica(i, make_engine())
+                for i in range(args.replicas)]
+    policy = StealPolicy(amount=args.steal, placement=args.placement)
+    # a killed engine stops responding, the heartbeat declares it dead, and
+    # the router replays its in-flight requests elsewhere
+    heartbeat = (HeartbeatMonitor(timeout_s=args.heartbeat_timeout)
+                 if chaotic else None)
+    straggler = (StragglerDetector(num_hosts=args.replicas)
+                 if chaotic else None)
+    router = ClusterRouter(replicas, policy=policy,
+                           telemetry=ClusterTelemetry(args.replicas),
+                           heartbeat=heartbeat, straggler=straggler)
+    autoscaler = None
     if args.autoscale:
-        out.append("--autoscale")
-    return out
+        ceiling = args.max_replicas or 2 * args.replicas
+        autoscaler = Autoscaler(AutoscalePolicy(
+            min_replicas=args.replicas, max_replicas=ceiling,
+            target_backlog=args.autoscale_target,
+            up_ticks=2, down_ticks=8, cooldown_s=0.5))
+    rng = np.random.default_rng(args.seed)
+    t0 = time.perf_counter()
+    reqs = []
+    for i in range(args.requests):
+        prompt = rng.integers(0, cfg.vocab_size, int(rng.integers(4, 48)))
+        req = Request(prompt_len=len(prompt),
+                      max_new_tokens=args.max_new_tokens,
+                      priority=float(i % 3))
+        router.submit(req, tokens=prompt)
+        reqs.append(req)
+    submitted = [r for r in reqs if r.state.name != "CANCELLED"]
+
+    killed = None
+    if not chaotic:
+        router.run_until_drained()
+    else:
+        tel = router.telemetry
+        kill_after = max(1, len(submitted) // 4)
+        for step in range(200_000):
+            router.step()
+            if (args.chaos == "kill-one" and killed is None
+                    and tel.finished >= kill_after and router.outstanding):
+                # kill the engine that owns the most in-flight work, so the
+                # crash displaces something worth replaying
+                owners = Counter(o for o in router._owner.values()
+                                 if o in router.placeable)
+                if owners:
+                    killed = owners.most_common(1)[0][0]
+                    router.replicas[killed].dead = True
+                    print(f"[chaos] killed replica {killed} after "
+                          f"{tel.finished} finishes "
+                          f"({owners[killed]} requests in flight on it)")
+            if autoscaler is not None and step % 4 == 0:
+                alive = router.placeable
+                backlog = sum(router.replicas[i].backlog_weight()
+                              for i in alive)
+                delta = autoscaler.observe(time.monotonic(), len(alive),
+                                           backlog)
+                if delta > 0:
+                    for _ in range(delta):
+                        idx = router.add_replica(
+                            EngineReplica(len(router.replicas),
+                                          make_engine()))
+                        print(f"[autoscale] added replica {idx}")
+                    tel.record_scale(time.perf_counter() - t0, delta,
+                                     len(router.placeable))
+                    router.steal_tick()
+                elif delta < 0:
+                    victim = min(alive,
+                                 key=lambda i:
+                                 (router.replicas[i].backlog_weight(), i))
+                    if router.retire_replica(victim):
+                        tel.record_scale(time.perf_counter() - t0, -1,
+                                         len(router.placeable))
+                        print(f"[autoscale] retiring replica {victim}")
+            if router.drained():
+                break
+        else:
+            print("FAIL: cluster did not drain within step budget",
+                  file=sys.stderr)
+            return 1
+
+    dt = time.perf_counter() - t0
+    done = sum(1 for r in reqs if r.state.name == "DONE")
+    toks = sum(r.generated for r in reqs)
+    print(f"completed {done}/{len(reqs)} requests, {toks} tokens in "
+          f"{dt:.2f}s ({toks / dt:.1f} tok/s) on {args.replicas} replicas "
+          f"[device={model.device}]")
+    tel = router.telemetry
+    print(tel.report())
+    summary = tel.summary()
+    spec = summary["spec"]
+    if spec["drafted_tokens"]:
+        print(f"speculative: drafted={spec['drafted_tokens']} "
+              f"accepted={spec['accepted_tokens']} "
+              f"acceptance={spec['acceptance_rate']:.2f} "
+              f"requests={spec['requests']}")
+    if chaotic:
+        ch, auto = summary["chaos"], summary["autoscale"]
+        print(f"chaos: crashes={ch['crashes']} "
+              f"replayed={ch['requests_replayed']} "
+              f"recoveries={ch['recoveries']} "
+              f"recovery_mean={ch['recovery_mean_s']:.3f}s "
+              f"p99_under_failure={ch['p99_under_failure_s']:.3f}s")
+        print(f"autoscale: ups={auto['scale_ups']} "
+              f"downs={auto['scale_downs']} peak={auto['replicas_peak']} "
+              f"final={auto['replicas_final']}")
+    for h in router.health():
+        if h.get("dead"):
+            print(f"  replica {h['replica_id']}: dead")
+            continue
+        print(f"  replica {h['replica_id']}: backlog={h['backlog_weight']} "
+              f"waiting={h['waiting']} active={h['active']}"
+              + (f" free_kv={h['free_kv_tokens']}"
+                 if "free_kv_tokens" in h else ""))
+    if not chaotic:
+        return 0
+    ok = True
+    if done != len(submitted):
+        print(f"FAIL: {len(submitted) - done} submitted requests did "
+              f"not finish", file=sys.stderr)
+        ok = False
+    if args.chaos == "kill-one":
+        if killed is None:
+            print("FAIL: chaos kill never triggered", file=sys.stderr)
+            ok = False
+        displaced = sum(e.get("displaced", 0) for e in summary["events"]
+                        if e["kind"] == "crash")
+        replayed = summary["chaos"]["requests_replayed"]
+        if replayed != displaced:
+            print(f"FAIL: telemetry replay mismatch: replayed="
+                  f"{replayed} displaced-at-crash={displaced}",
+                  file=sys.stderr)
+            ok = False
+        if killed is not None and displaced == 0:
+            print("FAIL: crash displaced no requests", file=sys.stderr)
+            ok = False
+    want = Counter(r.priority for r in reqs if r.state.name == "DONE")
+    for prio, n in sorted(want.items()):
+        got = summary["per_class"].get(str(prio), {}).get("count", 0)
+        if got != n:
+            print(f"FAIL: SLO class {prio}: telemetry counted {got} "
+                  f"finishes, engines report {n}", file=sys.stderr)
+            ok = False
+    if ok:
+        print(f"OK: chaos/autoscale smoke — {done}/{len(submitted)} "
+              f"finished, replay bookkeeping consistent")
+    return 0 if ok else 1
 
 
 def main(argv=None) -> int:
@@ -271,19 +437,29 @@ def main(argv=None) -> int:
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--s-max", type=int, default=128)
     ap.add_argument("--max-new-tokens", type=int, default=16)
-    # cluster and fault-injection flags of the reference launcher: parsed
-    # so the command lines match, refused below
     ap.add_argument("--steal", default="half_work",
                     choices=["half_work", "half_count", "none"])
     ap.add_argument("--placement", default="round_robin",
                     choices=["round_robin", "random", "least_of_d",
                              "least_work", "slo_aware", "cache_affinity",
                              "cost_model"])
-    ap.add_argument("--chaos", default=None, choices=["kill-one"])
-    ap.add_argument("--heartbeat-timeout", type=float, default=2.0)
-    ap.add_argument("--autoscale", action="store_true")
-    ap.add_argument("--max-replicas", type=int, default=None)
-    ap.add_argument("--autoscale-target", type=float, default=256.0)
+    ap.add_argument("--chaos", default=None, choices=["kill-one"],
+                    help="fault injection: kill-one marks the busiest "
+                         "engine dead mid-run; the heartbeat declares it, "
+                         "its requests replay elsewhere, and the run exits "
+                         "1 unless every request finishes with consistent "
+                         "replay telemetry")
+    ap.add_argument("--heartbeat-timeout", type=float, default=2.0,
+                    help="seconds without a step response before a replica "
+                         "is declared dead (chaos/autoscale cluster runs)")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="scale the live fleet from the backlog; "
+                         "--replicas is the floor")
+    ap.add_argument("--max-replicas", type=int, default=None,
+                    help="autoscale ceiling (default: 2x --replicas)")
+    ap.add_argument("--autoscale-target", type=float, default=256.0,
+                    help="backlog weight per replica the autoscaler aims "
+                         "to hold (token-units of remaining work)")
     ap.add_argument("--spec-draft", default=None,
                     help="speculative decoding: zoo config to draft with "
                          "('self' = the target drafts for itself); the "
@@ -320,11 +496,6 @@ def main(argv=None) -> int:
     ap.add_argument("--no-use-flash", dest="use_flash", action="store_false")
     args = ap.parse_args(argv)
 
-    missing = _not_yet_ported(args)
-    if missing:
-        print(f"not yet ported to repro_torch: {', '.join(missing)}",
-              file=sys.stderr)
-        return 2
     try:
         cfg = get_config(args.arch)
     except KeyError as e:
@@ -346,6 +517,8 @@ def main(argv=None) -> int:
     draft = _build_draft(args, model, params, cfg)
     if args.check_paged_equality:
         return _check_paged_equality(args, model, params, cfg, draft)
+    if args.replicas > 1:
+        return _serve_cluster(args, model, params, cfg, draft)
     _serve_single(args, model, params, cfg, draft)
     return 0
 

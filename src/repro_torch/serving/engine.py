@@ -24,9 +24,10 @@ and this model verifies, each step between prefill and plain decode
 (``serving.speculative``).
 
 The reference jits per prompt length; the port runs eagerly.  The model's
-functions update the KV caches in place.  Not yet ported: KV migration with
-cluster steals (a stolen partially-prefilled request restarts its prefill on
-the thief).
+functions update the KV caches in place.  A cluster steal of a
+partially-prefilled request carries its processed KV blocks: the victim
+gathers them off its pool into device tensors, and the thief writes them
+into blocks of its own and resumes at the chunk boundary.
 """
 from __future__ import annotations
 
@@ -222,13 +223,23 @@ class ServingEngine:
 
     def submit_request(self, req: Request, payload: Any = None,
                        migrated: bool = False) -> None:
-        """Register an externally-created request.  ``payload`` is the
-        prompt tokens, or a dict ``{"tokens": ..., "outputs": [...]}``.
-        KV that travels with a steal is not yet imported: a request that
-        arrives with prefill progress recomputes its prefix."""
+        """Register an externally-created request (cluster router placement
+        or, with ``migrated=True``, a steal migration from another
+        replica).  ``payload`` is the prompt tokens, or a dict
+        ``{"tokens": ..., "kv": (k, v), "outputs": [...]}`` when a
+        partially-prefilled (or previously preempted) request migrates with
+        its processed KV blocks and the tokens it already emitted.  The
+        prefix KV is adopted into this pool where it fits; otherwise (a
+        victim ring larger than ours, another block size, a pool that
+        cannot allocate) the prefix is recomputed.  A first placement that
+        cannot fit is rejected like a direct ``submit``; a migrated request
+        was already accepted by the cluster, so it is truncated rather than
+        bounced."""
+        kv = None
         outputs: List[int] = []
         if isinstance(payload, dict):
             tokens = payload["tokens"]
+            kv = payload.get("kv")
             outputs = list(payload.get("outputs", []))
         else:
             tokens = payload
@@ -241,7 +252,10 @@ class ServingEngine:
             req.state = RequestState.WAITING
         self.prompts[req.rid] = np.asarray(tokens, np.int32)
         self.outputs[req.rid] = outputs or self.outputs.get(req.rid, [])
-        req.prefilled = 0
+        if req.prefilled > 0 and not (self.paged and kv is not None
+                                      and self._import_kv(req, kv)):
+            req.prefilled = 0               # recompute the prefix
+        # cache affinity does not travel: re-probe against our pool
         req.cached_prefix = 0
         self._probe_prefix(req, tokens)
         self.batcher.submit(req)
@@ -249,8 +263,9 @@ class ServingEngine:
     def export_waiting(self, target_weight: Optional[int] = None,
                        count: Optional[int] = None):
         """Yield waiting requests (with their prompt tokens) to a thief.
-        Their processed KV does not travel yet: the thief restarts the
-        prefill from chunk 0."""
+        Partially-prefilled chunk requests migrate with their processed KV
+        blocks (copied out of the pool via their block table), so the thief
+        resumes at the chunk boundary instead of recomputing."""
         if target_weight is not None:
             stolen = self.batcher.steal_waiting(target_weight)
         else:
@@ -259,8 +274,15 @@ class ServingEngine:
         for r in stolen:
             payload: Dict[str, Any] = {"tokens": self.prompts.pop(r.rid)}
             self._keys.pop(r.rid, None)
-            r.prefilled = 0
-            r.cached_prefix = 0
+            if self.paged and r.prefilled > 0:
+                kv = self._export_kv(r)
+                if kv is not None:
+                    payload["kv"] = kv
+                else:
+                    # the blocks were already reclaimed: the thief restarts
+                    # from chunk 0, and the work estimate must say so
+                    r.prefilled = 0
+            r.cached_prefix = 0              # affinity does not travel
             emitted = self.outputs.pop(r.rid, None)
             if emitted:
                 payload["outputs"] = emitted
@@ -303,6 +325,44 @@ class ServingEngine:
     def _on_pruned(self, req: Request) -> None:
         """Batcher pruned a dead waiting request: free its blocks."""
         self._release(req.rid)
+
+    def _export_kv(self, req: Request
+                   ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """The request's processed prefix blocks, ``(k, v)`` of
+        [L, blocks, block_size, kvH, hd] on this pool's device.
+        ``index_select`` copies, so the victim's blocks can be reused as
+        soon as the request is released."""
+        if not hasattr(self.cache, "k"):
+            return None
+        blocks = self.alloc.blocks_of(req.rid)
+        need = self.alloc.blocks_for_tokens(req.prefilled)
+        if len(blocks) < need:
+            return None
+        idx = torch.as_tensor(blocks[:need], dtype=torch.long,
+                              device=self.device)
+        return (self.cache.k.index_select(1, idx),
+                self.cache.v.index_select(1, idx))
+
+    def _import_kv(self, req: Request, kv) -> bool:
+        """Write a migrated prefix into fresh blocks of this pool, in place.
+        False (recompute) when it cannot resume chunk-aligned here."""
+        if not hasattr(self.cache, "k"):
+            return False
+        k, v = kv
+        nblk = k.shape[1]
+        if nblk > self.max_blocks or req.prompt_len + 1 > self.cap:
+            # victim had a larger ring than ours
+            return False
+        if k.shape[2] != self.block_size or \
+                not self.alloc.can_allocate(nblk * self.block_size,
+                                            req.rid):
+            return False                     # thief pool full: recompute
+        self.alloc.ensure(req.rid, nblk * self.block_size)
+        idx = torch.as_tensor(self.alloc.blocks_of(req.rid)[:nblk],
+                              dtype=torch.long, device=self.device)
+        self.cache.k.index_copy_(1, idx, k)
+        self.cache.v.index_copy_(1, idx, v)
+        return True
 
     def _table_row(self, rid: int) -> np.ndarray:
         return self.alloc.table_row(rid, self.max_blocks)

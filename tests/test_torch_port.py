@@ -29,8 +29,13 @@ SERVE = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
 
 
 #: modules that must be among those scanned (the MoE slice's, the RWKV
-#: slice's with the last two kernels, and speculative decoding's)
+#: slice's with the last two kernels, speculative decoding's, and the
+#: scheduler and live cluster's)
 REQUIRED = ("repro_torch.serving.speculative",
+            "repro_torch.core.scheduler", "repro_torch.analysis.schedlint",
+            "repro_torch.core.device.weighted_partition",
+            "repro_torch.runtime.fault_tolerance",
+            "repro_torch.cluster.router", "repro_torch.apps.uts",
             "repro_torch.core.device.moe_balance", "repro_torch.models.moe",
             "repro_torch.kernels._build", "repro_torch.kernels.moe_gmm",
             "repro_torch.kernels.moe_gmm.ops",
@@ -83,6 +88,11 @@ def test_no_jax_or_repro_import_in_source(path):
             assert top not in ("jax", "jaxlib", "repro"), (path, name)
 
 
+#: the paper's six apps and the cluster's modules, all copies
+APPS = ("__init__", "bipartition", "prefix_sum", "quicksort", "sssp",
+        "tristrip", "uts")
+CLUSTER_MODULES = ("__init__", "chaos", "telemetry", "replica", "router",
+                   "sim")
 COPY_HEADER = "# Copied from src/repro/{}; only the imports may differ.\n"
 COPIES = sorted(p for p in PKG.rglob("*.py")
                 if p.read_text().startswith("# Copied from "))
@@ -102,6 +112,12 @@ def test_copies_are_found():
     assert {"core/strategy.py", "core/task.py", "core/task_storage.py",
             "core/device/request_scheduler.py", "serving/paged_kv.py",
             "configs/base.py"} <= names
+    assert {"core/machine.py", "core/metrics.py", "core/scheduler.py",
+            "core/__init__.py", "runtime/elastic.py", "runtime/__init__.py"
+            } | {f"apps/{m}.py" for m in APPS} \
+        | {f"analysis/{m}.py" for m in ("__init__", "invariants",
+                                        "interleave")} \
+        | {f"cluster/{m}.py" for m in CLUSTER_MODULES} <= names
 
 
 @pytest.mark.parametrize("path", COPIES,
@@ -218,15 +234,48 @@ def test_launcher_without_cuda_fails_loudly():
     assert "no CUDA device" in out.stderr
 
 
-@pytest.mark.parametrize("flag", [["--replicas", "2"],
-                                  ["--chaos", "kill-one"], ["--autoscale"],
-                                  ["--arch", "jamba-v0.1-52b"]])
+@pytest.mark.parametrize("flag", [["--arch", "jamba-v0.1-52b"]])
 def test_launcher_refuses_what_is_not_ported(flag):
     out = subprocess.run(SERVE + ["--device", "cpu"] + flag, env=ENV,
                          cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 2
     assert "not yet ported" in out.stderr
+
+
+CLUSTER = [sys.executable, "-m", "repro_torch.launch.serve", "--device",
+           "cpu", "--smoke", "--replicas", "2"]
+
+
+def _cluster_run(*flags):
+    out = subprocess.run(CLUSTER + list(flags), env=ENV, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    return out.stdout
+
+
+def test_launcher_cluster_on_cpu():
+    """Two live engines behind the router: every request completes."""
+    stdout = _cluster_run()
+    assert "completed 16/16 requests" in stdout
+    assert "on 2 replicas" in stdout
+    assert "finished=16" in stdout
+
+
+def test_launcher_cluster_chaos_kill_one_on_cpu():
+    """The busiest engine is killed mid-run; the heartbeat declares it dead
+    and its requests replay on the survivor; the gates pass."""
+    stdout = _cluster_run("--requests", "12", "--chaos", "kill-one",
+                          "--heartbeat-timeout", "0.2")
+    assert "[chaos] killed replica" in stdout
+    assert "chaos: crashes=1" in stdout
+    assert "OK: chaos/autoscale smoke — 12/12 finished" in stdout
+
+
+def test_launcher_cluster_autoscale_on_cpu():
+    stdout = _cluster_run("--autoscale")
+    assert "autoscale: ups=" in stdout
+    assert "OK: chaos/autoscale smoke — 16/16 finished" in stdout
 
 
 def test_build_model_defaults_to_cuda():
