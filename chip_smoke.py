@@ -21,6 +21,8 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      bf16 and fp32, a window with a bottom-right q_offset, a kv_valid = 0
      row; at Mixtral-8x22B's heads (48/8): a 512-token prefill with its
      4096 window and a decode over the 1024-slot paged view, mixed kv_valid;
+     at jamba-v0.1-52b's heads (32/8, no RoPE, no window): a 1024-token
+     prefill and a decode over the 2048-slot paged view, mixed kv_valid;
      then the split route's edges (T not a multiple of the chunk, T under
      one chunk, kv_valid 0, 1 and T in one batch, S = 2..4 causal with a
      q_offset, a window that empties the early chunks, g = 1, 6, 8, fp32);
@@ -37,7 +39,10 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      real routing of 8 tokens), prefill at C = 512 and C = 1024 (real
      routings, ~128 and ~256 rows per expert), an empty expert (exact
      zeros), a small fp32 case, decode at C = 16, loads of 0, 1 and C rows,
-     and D, F multiples of 8 but not 16 at a small shape; kernel and plain
+     and D, F multiples of 8 but not 16 at a small shape; at
+     jamba-v0.1-52b's (E = 16, D = 4096, F = 14336): decode (C = 8, a real
+     top-2 routing of 8 tokens) and prefill (a real routing of 1024 tokens,
+     ~128 rows per expert); kernel and plain
      version each also against the function computed in fp64 on a few rows
      per expert; device times of the kernel and of cuBLAS bmm;
    - WKV-6 at rwkv6-3b's heads (H = 40, N = 64): the bf16 prefill at
@@ -126,13 +131,32 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    1e-3; in bf16 each route as far from the fp32 logits as the other), on
    4 prompts.
 
-7. the prefix scan's own path (it is on no serving path: the reference
+7. main path 4: jamba-v0.1-52b at full width cut to 2 of its 4
+   superblocks (16 of 32 layers, random bf16 weights from --seed; 3
+   superblocks would not fit the card) served by the paged engine: 8
+   requests, prompts of 64-1024 tokens, 16 new tokens each; every request
+   done, ``alloc.check()``, logits finite, flash attention launched once a
+   superblock (2 a call) and grouped SwiGLU once a MoE layer (8 a call) in
+   every prefill and decode call.  Then paged == contiguous on 4 requests.
+   Then, in place of chunked prefill (the family has none), the hand-off
+   (``phase_hybrid_handoff``) on those 4 prompts: prefill(p + [t]) against
+   prefill(p) then decode_step(t), with each MoE layer's expert choice for
+   the last token compared; in bf16 the distance on the logits against the
+   reference's bound of 0.25 and the flipped layers are reported (a
+   flipped expert choice puts it far past 0.25); held in fp32 on 1
+   superblock at full width (its own weights, loaded alone), within 1e-3
+   of the largest |logit|.
+
+8. the prefix scan's own path (it is on no serving path: the reference
    runs it from its benchmarks and tests only): its public wrapper driven
    at the inputs the reference's benchmarks give it, each held against
    its plain version.
 
 Every kernel launch of a path is counted by its wrapper, with the counts
-set to 0 just before the path and read just after.  ``launches`` counts
+set to 0 just before the path and read just after, and held per engine
+call: each prefill and decode call launches a kernel once for every layer
+that runs it (a hybrid's flash once a superblock, its grouped SwiGLU once
+a MoE layer).  ``launches`` counts
 wrapper calls that launched the kernel route: a flash decode (the split
 pass and, with several splits, the combine pass) and a grouped SwiGLU (its
 two phases) each count once.  ``kernel_launches`` counts the kernels those
@@ -141,7 +165,8 @@ calls launched.
 Two lines before the last is the JSON record of the kernels, of the
 speculative phases (``spec``) and of the cluster phases (``cluster``);
 flash attention's rows at qwen2-1.5b's heads count the cluster runs'
-launches too, and list each path's in ``launches_by_path``.  Then the
+launches too; every row lists its kernel's launches on each path in
+``launches_by_path``.  Then the
 card's name and power limit; the last is ``{"ok": true, "device":
 {...}}``.
 """
@@ -261,6 +286,12 @@ CLUSTER_ENGINE = dict(max_batch=4, s_max=2048, block_size=16,
 CLUSTER_CHUNK = 256
 ARRIVAL_EVERY = 2
 AUTOSCALE_TARGET = 128
+#: main path 4: jamba-v0.1-52b's depth on one card (2 of its 4 superblocks:
+#: 26.05B parameters, 52.1 GB in bf16; 3 would be 77.6 GB); the fp32
+#: hand-off's bound on |prefill(p + [t]) - decode(t)| relative to the
+#: largest |logit|
+JAMBA_LAYERS = 16
+HANDOFF_TOL_FP32 = 1e-3
 
 
 def _zero_counts() -> None:
@@ -442,10 +473,12 @@ def phase_flash_probe() -> None:
 
 def phase_kernels(seed: int) -> list:
     """flash_attention against its plain version at each main path's
-    shapes: qwen2-1.5b's 12/2 heads and Mixtral-8x22B's 48/8 heads (whose
-    prefill passes the 4096 window, decode the paged view of s_max 1024)."""
+    shapes: qwen2-1.5b's 12/2 heads, Mixtral-8x22B's 48/8 heads (whose
+    prefill passes the 4096 window, decode the paged view of s_max 1024)
+    and jamba-v0.1-52b's 32/8 (GQA packing g = 4; no RoPE and no window,
+    which the kernel never sees)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    qwen, mixtral = "qwen2-1.5b", "mixtral-8x22b"
+    qwen, mixtral, jamba = "qwen2-1.5b", "mixtral-8x22b", "jamba-v0.1-52b"
     cases = [
         # path, name, dtype, B, S, T, H, Hkv, causal, window, q_offset,
         # kv_valid
@@ -465,6 +498,10 @@ def phase_kernels(seed: int) -> list:
          True, 4096, 0, None),
         (mixtral, "mixtral_decode", torch.bfloat16, 8, 1, 1024, 48, 8, False,
          None, 0, [65, 1024, 130, 513, 1, 300, 700, 529]),
+        (jamba, "jamba_prefill", torch.bfloat16, 1, 1024, 1024, 32, 8, True,
+         None, 0, None),
+        (jamba, "jamba_decode", torch.bfloat16, 8, 1, 2048, 32, 8, False,
+         None, 0, [65, 2048, 130, 1025, 1, 300, 1700, 529]),
         # the split route's edges: T not a multiple of the chunk with
         # kv_valid 0, 1 and T in one batch; T under one chunk; S = 2..4
         # with causal and a bottom-right q_offset; a window that leaves the
@@ -629,9 +666,11 @@ def _fp64_err(x, wg, wu, wd, outs, rows=8):
 
 def phase_gmm_kernel(seed: int) -> list:
     """grouped_swiglu against its plain version at Mixtral-8x22B's widths
-    (E = 8, D = 6144, F = 16384) and at a small fp32 shape."""
+    (E = 8, D = 6144, F = 16384), at a small fp32 shape, and at
+    jamba-v0.1-52b's (E = 16, D = 4096, F = 14336)."""
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     e, d, f = 8, 6144, 16384
+    mixtral, jamba = "mixtral-8x22b", "jamba-v0.1-52b"
 
     def weights(e, d, f, dt):
         return [(torch.randn(s, generator=g, device="cuda") / s[1] ** 0.5
@@ -662,8 +701,29 @@ def phase_gmm_kernel(seed: int) -> list:
     odd_x[torch.arange(40, device="cuda")[None, :] >= odd_load[:, None]] = 0
     cases.append(("D264_F520", odd_x, odd_load,
                   weights(3, 264, 520, torch.bfloat16)))
+    cases = [(mixtral, *case) for case in cases]
+    # Jamba's 16 experts (a second weight set, after Mixtral's are freed)
+    rows = _gmm_rows(cases)
+    del cases, w, small_w, edge_x, odd_x
+    gc.collect()
+    torch.cuda.empty_cache()
+    w = weights(16, 4096, 14336, torch.bfloat16)
+    cases = [(jamba, "jamba_decode",
+              *_routed(g, 8, 16, 4096, torch.bfloat16), w),
+             (jamba, "jamba_prefill",
+              *_routed(g, 1024, 16, 4096, torch.bfloat16), w)]
+    rows += _gmm_rows(cases)
+    del cases, w
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _gmm_rows(cases) -> list:
+    """Each case (path, name, x, load, weights): the kernel against its
+    plain version, fp64 errors, times and bound."""
     rows = []
-    for name, x, load, (wg, wu, wd) in cases:
+    for path, name, x, load, (wg, wu, wd) in cases:
         got = gmm_ops.grouped_swiglu(x, wg, wu, wd, load)
         torch.cuda.synchronize()
         want = grouped_swiglu_plain(x, wg, wu, wd, load)
@@ -685,7 +745,7 @@ def phase_gmm_kernel(seed: int) -> list:
         ms = _time_ms(lambda: gmm_ops.grouped_swiglu(x, wg, wu, wd, load))
         rows.append(dict(
             GMM_KERNEL, case=f"{name}/{str(x.dtype).split('.')[1]}",
-            path="mixtral-8x22b",
+            path=path,
             shape=dict(E=x.shape[0], C=x.shape[1], D=x.shape[2],
                        F=wg.shape[2], load=load.tolist()),
             max_abs_err=err, max_err=err, tol=tol, ms=ms, kernel_ms=ms,
@@ -709,9 +769,6 @@ def phase_gmm_kernel(seed: int) -> list:
               f"{rows[-1]['device_ms']} ms, bmm "
               f"{rows[-1]['library_device_ms']} ms; bound {bound_ms} ms "
               f"({bound_by}), load {load.tolist()}")
-    del cases, w, small_w, edge_x, odd_x
-    gc.collect()
-    torch.cuda.empty_cache()
     return rows
 
 
@@ -988,8 +1045,8 @@ class _Phase:
 def phase_main_path(model, params, prompts, *, s_max, max_new, kv_mode,
                     kernels) -> dict:
     """Serve ``prompts`` through the engine in ``kv_mode``.  ``kernels``
-    maps a kernel to (in prefill, in decode): where True it must be
-    launched once a layer in every call, where False never."""
+    maps a kernel to its launches in one prefill call and in one decode
+    call (0: never)."""
     eng = ServingEngine(model, params, max_batch=8, s_max=s_max,
                         block_size=16, kv_mode=kv_mode)
     prefill, decode = _Phase(eng._prefill), _Phase(eng._decode)
@@ -1010,10 +1067,9 @@ def phase_main_path(model, params, prompts, *, s_max, max_new, kv_mode,
     if eng.paged:
         eng.alloc.check()
     layers = model.cfg.num_layers
-    for k, (in_prefill, in_decode) in kernels.items():
+    for k, (per_prefill, per_decode) in kernels.items():
         p_n, d_n = prefill.launches[k], decode.launches[k]
-        want = (layers * prefill.calls * in_prefill,
-                layers * decode.calls * in_decode)
+        want = (per_prefill * prefill.calls, per_decode * decode.calls)
         if (p_n, d_n) != want or want == (0, 0) \
                 or launches[k] != p_n + d_n:
             raise AssertionError(f"{k} launches: prefill {p_n}, decode "
@@ -1028,6 +1084,7 @@ def phase_main_path(model, params, prompts, *, s_max, max_new, kv_mode,
                  prefill_calls=prefill.calls,
                  decode_steps=decode.calls,
                  decode_step_ms=decode.seconds / decode.calls * 1e3,
+                 launches_per_call=kernels,
                  launches=launches, launches_prefill=prefill.launches,
                  launches_decode=decode.launches,
                  kernel_launches=kernel_launches,
@@ -1623,6 +1680,8 @@ def phase_verify_probe(model, params, prompts, *, s_max, seed,
 def _cast_tree(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast_tree(v, dtype) for v in tree]
     return tree.to(dtype)
 
 
@@ -1696,6 +1755,66 @@ def phase_rwkv_checks(model, params, prompts) -> dict:
     return out
 
 
+def _last_token_experts(record: list):
+    """Wraps ``models.moe.route_topk`` while it is in use: appends, for
+    every MoE layer's routing, the last token's chosen experts (sorted)."""
+    inner = moe_mod.route_topk
+
+    def route(logits, k):
+        out = inner(logits, k)
+        record.append(sorted(out[0][-1].tolist()))
+        return out
+    return route
+
+
+def phase_hybrid_handoff(model, params, prompts, bound_rel=None) -> dict:
+    """The check that takes chunked prefill's place for the hybrid (it has
+    no chunk path): the last logits of prefill(p + [t]) against prefill(p)
+    then decode_step(t) at position len(p), per prompt; prefill runs flash's
+    ``mma`` route (fp32: ``fma``) and the Mamba scan, decode the ``split``
+    route and the one-step recurrence.  Each MoE layer's choice of experts
+    for the last token is recorded on both sides, and the layers where it
+    differs (a flipped choice) are listed.  With ``bound_rel``, each
+    distance must stay under ``bound_rel`` of the prompt's largest |logit|.
+    In bf16 the two sides round differently (the conv's sums, the GEMMs'
+    orders, flash's two routes), and at 16 layers of random weights that
+    is enough to flip a near-tied expert choice, which moves the logits by
+    up to their own scale, far past the reference's bf16 bound of 0.25:
+    so the bf16 distances are reported, and the check is held in fp32."""
+    cfg = model.cfg
+    out = dict(dtype=cfg.dtype, layers=cfg.num_layers,
+               prompts=[len(p) for p in prompts], err=[], max_abs_logit=[],
+               flipped_moe_layers=[], bound_rel=bound_rel)
+    for p in prompts:
+        toks = torch.as_tensor(p[None, :], device="cuda")
+        whole_route, step_route = [], []
+        try:
+            moe_mod.route_topk = _last_token_experts(whole_route)
+            whole, _ = model.prefill(params, {"tokens": toks})
+            moe_mod.route_topk = route_topk
+            _, cache = model.prefill(params, {"tokens": toks[:, :-1]},
+                                     toks.shape[1])
+            moe_mod.route_topk = _last_token_experts(step_route)
+            stepped, _ = model.decode_step(params, toks[:, -1:], cache,
+                                           toks.shape[1] - 1)
+        finally:
+            moe_mod.route_topk = route_topk
+        if not (torch.isfinite(whole).all() and torch.isfinite(stepped).all()):
+            raise AssertionError("non-finite logits")
+        out["err"].append((whole.float() - stepped.float()).abs().max()
+                          .item())
+        out["max_abs_logit"].append(whole.float().abs().max().item())
+        out["flipped_moe_layers"].append(
+            [i for i, (a, b) in enumerate(zip(whole_route, step_route))
+             if a != b])
+    print(f"hybrid hand-off {cfg.dtype}: " + json.dumps(out))
+    if bound_rel is not None and any(
+            e >= bound_rel * t for e, t in zip(out["err"],
+                                               out["max_abs_logit"])):
+        raise AssertionError(f"{cfg.name} {cfg.dtype} hand-off: {out}")
+    return out
+
+
 def _init(cfg, seed):
     model = build_model(cfg, "cuda")
     t0 = time.perf_counter()
@@ -1730,9 +1849,10 @@ def main() -> int:
     cfg = get_config("qwen2-1.5b").replace(use_flash=True)
     model, params = _init(cfg, args.seed)
     prompts = _prompts(rng, 16, cfg.vocab_size)
+    layers = cfg.num_layers
     qwen = phase_main_path(model, params, prompts, s_max=2048, max_new=32,
                            kv_mode="paged",
-                           kernels={"flash_attention": (True, True)})
+                           kernels={"flash_attention": (layers, layers)})
     phase_paged_equals_contiguous(model, params, prompts[:4], 2048)
     cluster = phase_cluster(model, params, prompts)
     spec = dict(probe={})
@@ -1771,10 +1891,11 @@ def main() -> int:
     cfg = get_config("mixtral-8x22b").replace(num_layers=8, use_flash=True)
     model, params = _init(cfg, args.seed)
     prompts = _prompts(rng, 8, cfg.vocab_size, longest=512)
+    layers = cfg.num_layers
     mixtral = phase_main_path(model, params, prompts, s_max=1024,
                               max_new=16, kv_mode="paged",
-                              kernels={"flash_attention": (True, True),
-                                       "grouped_swiglu": (True, True)})
+                              kernels={"flash_attention": (layers, layers),
+                                       "grouped_swiglu": (layers, layers)})
     phase_paged_equals_contiguous(model, params, prompts[:4], 1024)
     spec["mixtral-8x22b"] = phase_spec(
         model, params, prompts, s_max=1024, max_new=16, moe=True, drafts=[
@@ -1804,26 +1925,57 @@ def main() -> int:
     prompts = _prompts(rng, 8, cfg.vocab_size)
     rwkv = phase_main_path(model, params, prompts, s_max=2048, max_new=32,
                            kv_mode="contiguous",
-                           kernels={"wkv6": (True, False)})
+                           kernels={"wkv6": (cfg.num_layers, 0)})
     phase_rwkv_checks(model, params, prompts[:4])
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # main path 4: jamba-v0.1-52b at full width, 2 of its 4 superblocks
+    cfg = get_config("jamba-v0.1-52b").replace(num_layers=JAMBA_LAYERS,
+                                               use_flash=True)
+    model, params = _init(cfg, args.seed)
+    prompts = _prompts(rng, 8, cfg.vocab_size)
+    n_sb = cfg.num_layers // cfg.attn_every
+    moe = n_sb * (cfg.attn_every // cfg.moe_layer_period)
+    jamba = phase_main_path(model, params, prompts, s_max=2048, max_new=16,
+                            kv_mode="paged",
+                            kernels={"flash_attention": (n_sb, n_sb),
+                                     "grouped_swiglu": (moe, moe)})
+    phase_paged_equals_contiguous(model, params, prompts[:4], 2048)
+    handoff = {"bf16": phase_hybrid_handoff(model, params, prompts[:4]),
+               "bf16_bound": BF16_LOGIT_TOL}
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the hand-off held in fp32: 1 superblock at full width (53 GB, alone)
+    cfg = cfg.replace(num_layers=cfg.attn_every, dtype="float32",
+                      param_dtype="float32")
+    model, params = _init(cfg, args.seed)
+    handoff["fp32"] = phase_hybrid_handoff(model, params, prompts[:4],
+                                           bound_rel=HANDOFF_TOL_FP32)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # each row carries its kernel's launches on the path it was sized for
     # (the fp32 and synthetic-mask rows: the path whose heads they use)
     # (the cluster runs: flash's launches under their own path names, and
     # added into the qwen rows' count)
     by_path = {p["arch"]: p["launches"]
-               for p in (qwen, mixtral, rwkv, scan_path)}
+               for p in (qwen, mixtral, rwkv, jamba, scan_path)}
     extra = {cluster[k]["path"]: cluster[k]["launches"]
              for k in ("chunked", "whole")}
     rows = flash_rows + gmm_rows + wkv_rows + scan_rows
     for row in rows:
         row["launches"] = by_path[row["path"]][row["name"]]
+        row["launches_by_path"] = {
+            p: n[row["name"]] for p, n in {**by_path, **extra}.items()
+            if n[row["name"]]}
         if row["path"] == "qwen2-1.5b":
-            row["launches_by_path"] = {
-                row["path"]: row["launches"],
-                **{p: n[row["name"]] for p, n in extra.items()}}
             row["launches"] += sum(n[row["name"]] for n in extra.values())
-    print(json.dumps({"kernels": rows, "spec": spec, "cluster": cluster}))
+    print(json.dumps({"kernels": rows, "spec": spec, "cluster": cluster,
+                      "hybrid_handoff": handoff}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1832,8 +1984,8 @@ def main() -> int:
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
+    if isinstance(tree, (dict, list)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
             yield from _leaves(v)
     else:
         yield tree

@@ -10,16 +10,23 @@ with random weights at the serving shape of ``chip_smoke.py``'s main paths.
         --arch mixtral-8x22b --layers 8 --out build/profile_mixtral.json
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch rwkv6-3b --out build/profile_rwkv.json
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch jamba-v0.1-52b --layers 16 --out build/profile_jamba.json
 
 ``--layers`` cuts the depth (the widths stay as published): full
-Mixtral-8x22B needs ~281 GB, so one card holds 8 of its 56 layers.
+Mixtral-8x22B needs ~281 GB, so one card holds 8 of its 56 layers; full
+Jamba ~104 GB, so one card holds 2 of its 4 superblocks (16 of 32 layers;
+the hybrid's depth must be a multiple of its superblock, ``attn_every``).
 
 Prints one JSON object with, per window: host wall time (taken without the
 profiler, on the same calls just before), device busy time (the sum of
 kernel times: the engine runs on one stream, so kernels do not overlap), the
 device's idle share of the wall time, kernel launches, and the kernels that
-take the most device time.  Needs a CUDA device: device metrics are never
-taken on the CPU.
+take the most device time, and each hand-written kernel's share of the busy
+time (by kernel name).  For the hybrid it adds the plain Mamba scan's and
+the whole Mamba layer's device time at the prefill's shape, measured alone,
+and their share of the prefill's busy time over all the Mamba layers.
+Needs a CUDA device: device metrics are never taken on the CPU.
 """
 from __future__ import annotations
 
@@ -36,13 +43,17 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..configs import get_config
 from ..device import resolve_device
-from ..models import build_model
+from ..models import build_model, ssm
+from ..models.transformer import _layer
 from ..serving import ServingEngine
 
 MAX_BATCH, S_MAX, PROMPT_LEN = 8, 2048, 1024
 STEPS = 10        # decode steps per window
 PREFILLS = 3      # prefills per window
 TOP = 12          # kernels listed per window
+#: the hand-written kernels, by a substring of their CUDA function names
+KERNELS = {"flash_attention": "flash_", "grouped_swiglu": "gmm_",
+           "wkv6": "wkv6_", "prefix_scan": "prefix_scan_"}
 
 
 def _summary(prof, wall_s: float, prof_wall_s: float, units: int) -> dict:
@@ -65,6 +76,8 @@ def _summary(prof, wall_s: float, prof_wall_s: float, units: int) -> dict:
         "device_busy_ms": busy / units,
         "idle_share": 1.0 - busy / (wall_s * 1e3),
         "kernel_launches": sum(r[1] for r in rows) / units,
+        "kernel_share": {name: sum(ms for ms, _, k in rows if tag in k) / busy
+                         for name, tag in KERNELS.items()},
         "top": [{"kernel": k[:120], "calls": n / units, "ms": ms / units,
                  "share_of_busy": ms / busy} for ms, n, k in rows[:TOP]],
     }
@@ -89,6 +102,31 @@ def _window(fn, units: int) -> tuple[dict, profile]:
     return _summary(prof, wall, prof_wall, units), prof
 
 
+def _mamba_windows(cfg, params, device) -> dict:
+    """The hybrid's Mamba layer at the prefill's shape (one prompt of
+    PROMPT_LEN tokens), timed alone: the plain scan (``_mamba_scan_chunked``
+    on fp32 decays and inputs [1, T, d_inner, d_state]) and the whole
+    ``mamba_fwd``.  Their device ms per call, and per prefill over every
+    Mamba layer (attn_every - 1 a superblock)."""
+    n_mamba = cfg.num_layers // cfg.attn_every * (cfg.attn_every - 1)
+    layers = _layer(params["superblocks"], 0)["layers"]
+    mp = next(layer["mamba"] for layer in layers if "mamba" in layer)
+    g = torch.Generator(device=device).manual_seed(0)
+    shape = (1, PROMPT_LEN, cfg.mamba_d_inner, cfg.mamba_d_state)
+    decay = torch.rand(shape, generator=g, device=device)
+    inp = torch.randn(shape, generator=g, device=device)
+    h0 = torch.zeros(shape[:1] + shape[2:], device=device)
+    x = torch.randn(1, PROMPT_LEN, cfg.d_model, generator=g,
+                    device=device).to(mp["in_proj"]["w"].dtype)
+    scan, _ = _window(lambda: ssm._mamba_scan_chunked(decay, inp, h0,
+                                                      cfg.ssm_chunk),
+                      PREFILLS)
+    layer, _ = _window(lambda: ssm.mamba_fwd(mp, x, cfg), PREFILLS)
+    return {"mamba_layers": n_mamba, "scan": scan, "mamba_fwd": layer,
+            "scan_ms_per_prefill": scan["device_busy_ms"] * n_mamba,
+            "mamba_ms_per_prefill": layer["device_busy_ms"] * n_mamba}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen2-1.5b")
@@ -101,10 +139,13 @@ def main(argv=None) -> int:
                          "decode window next to it")
     args = ap.parse_args(argv)
 
-    device = resolve_device("cuda")
     cfg = get_config(args.arch).replace(use_flash=True)
     if args.layers is not None:
+        if cfg.attn_every and args.layers % cfg.attn_every:
+            ap.error(f"--layers {args.layers}: {cfg.name} stacks "
+                     f"superblocks of {cfg.attn_every} layers")
         cfg = cfg.replace(num_layers=args.layers)
+    device = resolve_device("cuda")
     model = build_model(cfg, device)
     params = model.init(args.seed)
     rng = np.random.default_rng(args.seed)
@@ -126,6 +167,13 @@ def main(argv=None) -> int:
     prefill, _ = _window(
         lambda: model.prefill(params, {"tokens": prompt}, S_MAX), PREFILLS)
 
+    mamba = None
+    if cfg.family == "hybrid":
+        mamba = _mamba_windows(cfg, params, device)
+        for key in ("scan", "mamba"):
+            mamba[f"{key}_share_of_prefill_busy"] = (
+                mamba[f"{key}_ms_per_prefill"] / prefill["device_busy_ms"])
+
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout
@@ -133,6 +181,8 @@ def main(argv=None) -> int:
            "layers": cfg.num_layers, "kv_mode": eng.kv_mode,
            "max_batch": MAX_BATCH, "s_max": S_MAX, "decode_step": decode,
            "prefill": dict(prefill, prompt_len=PROMPT_LEN)}
+    if mamba is not None:
+        out["mamba"] = mamba
     print(json.dumps(out))
     if args.out:
         path = Path(args.out)

@@ -1,6 +1,7 @@
 """Uniform model interface (``Model``, ``build_model``) for the ported
-families: ``dense`` and ``moe`` (one trunk, as in the reference) and
-``ssm`` (RWKV-6, no paged path).
+families: ``dense`` and ``moe`` (one trunk, as in the reference), ``ssm``
+(RWKV-6, no paged path) and ``hybrid`` (Jamba: paged attention KV, Mamba
+states per slot; no chunked prefill, prefix caching or verify path).
 
 The PyTorch counterpart of ``repro/models/model_zoo.py``.  A ``Model`` is
 bound to a device; ``init(seed)`` draws its parameters there.
@@ -14,7 +15,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from . import rwkv_lm, transformer
+from . import hybrid, rwkv_lm, transformer
 
 __all__ = ["Model", "build_model"]
 
@@ -27,6 +28,10 @@ class Model:
     prefill: Callable[..., tuple]              # (params, batch, s_max)
     decode_step: Callable[..., tuple]          # (params, token, cache, pos)
     init_cache: Callable[..., Any]             # (batch, s_max) -> cache
+    #: contiguous slot insertion (cache, dense_cache_B1, slot) -> cache.
+    #: None = every cache leaf carries batch on the engine's batch_axis;
+    #: the hybrid overrides it (KV on axis 1, Mamba states on axis 2).
+    insert_prefill: Optional[Callable[..., Any]] = None
     # Paged-KV serving paths:
     #   init_paged_cache(batch, num_blocks, block_size) -> pool cache
     #   decode_step_paged(params, token, cache, table, pos)
@@ -34,8 +39,8 @@ class Model:
     #   prefill_chunk_paged(params, batch, cache, table_row, start)
     #   verify_paged(params, tokens_Bc, cache, table, pos): speculative
     #     verification, all-position logits for c tokens per sequence
-    #     (attention trunks only: RWKV state is not positional, so rejected
-    #     draft state could not be rolled back)
+    #     (attention trunks only: RWKV and Mamba states are not positional,
+    #     so rejected draft state could not be rolled back)
     init_paged_cache: Optional[Callable[..., Any]] = None
     decode_step_paged: Optional[Callable[..., tuple]] = None
     insert_prefill_paged: Optional[Callable[..., Any]] = None
@@ -74,6 +79,31 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
                 p, tok, cache, pos, cfg),
             init_cache=lambda batch, s_max: rwkv_lm.init_rwkv_cache(
                 cfg, batch, dev),
+        )
+    if cfg.family == "hybrid":
+        return Model(
+            cfg=cfg,
+            device=dev,
+            init=lambda seed: hybrid.init_hybrid_lm(
+                torch.Generator(device=dev).manual_seed(seed), cfg),
+            prefill=lambda p, b, s_max=None: hybrid.hybrid_prefill(
+                p, b, cfg, s_max),
+            decode_step=lambda p, tok, cache, pos: hybrid.hybrid_decode_step(
+                p, tok, cache, pos, cfg),
+            init_cache=lambda batch, s_max: hybrid.init_hybrid_cache(
+                cfg, batch, s_max, dev),
+            insert_prefill=lambda cache, dense, slot:
+                hybrid.hybrid_insert_prefill(cache, dense, slot, cfg),
+            init_paged_cache=lambda batch, nb, bs:
+                hybrid.init_hybrid_paged_cache(cfg, batch, nb, bs, dev),
+            decode_step_paged=lambda p, tok, cache, table, pos:
+                hybrid.hybrid_decode_step_paged(p, tok, cache, table, pos,
+                                                cfg),
+            insert_prefill_paged=lambda cache, dense, row, slot:
+                hybrid.hybrid_insert_prefill_paged(cache, dense, row, slot,
+                                                   cfg),
+            # chunked prefill needs Mamba state carry across chunks: the
+            # hybrid prefills whole prompts (still paged for decode)
         )
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not yet ported "

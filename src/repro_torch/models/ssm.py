@@ -1,5 +1,5 @@
-"""RWKV-6 (Finch) time mix and channel mix: the RWKV half of
-``repro/models/ssm.py`` (Mamba waits for the hybrid slice).
+"""State-space blocks: RWKV-6 (Finch) time mix and channel mix, and Mamba
+(S6), the PyTorch counterpart of ``repro/models/ssm.py``.
 
 RWKV-6 recurrence (per head, k-dim N, v-dim N):
     S_t = diag(w_t) S_{t-1} + k_t v_tᵀ
@@ -10,6 +10,11 @@ Prefill with a state and ``cfg.use_flash`` runs the WKV-6 kernel
 (``kernels/wkv6``), as the reference routes it; otherwise a chunked scan
 carries the state from chunk to chunk and composes each chunk's steps with
 an associative scan, in fp32.  Decode is the plain one-step recurrence.
+
+Mamba (S6):  h_t = exp(Δ_t A) h_{t-1} + Δ_t B_t x_t ;  y_t = C_tᵀ h_t + D x_t
+The reference has no Mamba kernel, and neither has the port: prefill runs
+the reference's chunked scan in plain PyTorch (fp32 Δ, B, C, decays and
+state), decode the one-step recurrence.
 """
 from __future__ import annotations
 
@@ -23,13 +28,19 @@ from ..kernels.wkv6 import wkv6
 from .layers import group_norm, init_group_norm, init_linear, linear
 
 __all__ = ["init_rwkv_time_mix", "rwkv_time_mix", "rwkv_time_mix_decode",
-           "init_rwkv_channel_mix", "rwkv_channel_mix", "RWKVState"]
+           "init_rwkv_channel_mix", "rwkv_channel_mix", "RWKVState",
+           "init_mamba", "mamba_fwd", "mamba_decode", "MambaState"]
 
 
 class RWKVState(NamedTuple):
     tm_shift: torch.Tensor   # [B, D] previous token (time-mix)
     cm_shift: torch.Tensor   # [B, D] previous token (channel-mix)
     s: torch.Tensor          # [B, H, N, N] wkv state
+
+
+class MambaState(NamedTuple):
+    conv: torch.Tensor       # [B, d_conv-1, d_inner] (model dtype)
+    h: torch.Tensor          # [B, d_inner, d_state] (fp32)
 
 
 def _shift(x: torch.Tensor, prev: Optional[torch.Tensor] = None
@@ -203,3 +214,118 @@ def rwkv_channel_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
     xr = x + xx * p["mu_r"]
     kk = torch.square(F.relu(linear(p["wk"], xk)))
     return torch.sigmoid(linear(p["wr"], xr)) * linear(p["wv"], kk), x[:, -1]
+
+
+# ===========================================================================
+# Mamba (S6)
+# ===========================================================================
+
+def init_mamba(gen: torch.Generator, cfg: ModelConfig,
+               dtype=torch.bfloat16) -> dict:
+    d = cfg.d_model
+    di = cfg.mamba_d_inner
+    ds = cfg.mamba_d_state
+    dtr = cfg.resolved_dt_rank
+    dev = gen.device
+    a = torch.arange(1, ds + 1, dtype=torch.float32,
+                     device=dev)[None].repeat(di, 1)
+    return {
+        "in_proj": init_linear(gen, d, 2 * di, dtype=dtype),
+        "conv_w": _normal(gen, (cfg.mamba_d_conv, di), 1 / cfg.mamba_d_conv,
+                          dtype),
+        "conv_b": torch.zeros((di,), dtype=dtype, device=dev),
+        "x_proj": init_linear(gen, di, dtr + 2 * ds, dtype=dtype),
+        "dt_proj": init_linear(gen, dtr, di, bias=True, dtype=dtype),
+        "a_log": torch.log(a),                          # fp32
+        "d_skip": torch.ones((di,), dtype=torch.float32, device=dev),
+        "out_proj": init_linear(gen, di, d, dtype=dtype),
+    }
+
+
+def _mamba_scan_chunked(a_t: torch.Tensor, b_t: torch.Tensor,
+                        h0: torch.Tensor, chunk: int):
+    """h_t = a_t * h_{t-1} + b_t over time.  a_t, b_t: [B, T, di, ds] fp32;
+    h0: [B, di, ds].  Returns (every h_t [B, T, di, ds], h_T).
+
+    The reference's chunked scan: T padded to chunks of ``chunk`` with
+    identity steps (decay 1, input 0), an inclusive scan of (a, b) under
+    (a1, b1) ∘ (a2, b2) = (a1 a2, a2 b1 + b2) inside each chunk, and an
+    outer loop over the chunks that carries h.  The inner scans of all
+    chunks run at once, a step at a time (``chunk`` - 1 steps, each over
+    every chunk); they only ever multiply decays, so a chunk's cumulative
+    decay may underflow to 0 where Δ·A sums below -87 without a division
+    by it."""
+    b, t, di, ds = a_t.shape
+    c = min(chunk, t)
+    pad = (-t) % c
+    if pad:
+        a_t = F.pad(a_t, (0, 0, 0, 0, 0, pad), value=1.0)
+        b_t = F.pad(b_t, (0, 0, 0, 0, 0, pad))
+    n = (t + pad) // c
+    a = a_t.reshape(b, n, c, di, ds)
+    a_cum = a.clone()
+    b_cum = b_t.reshape(b, n, c, di, ds).clone()
+    for j in range(1, c):
+        torch.addcmul(b_cum[:, :, j], a[:, :, j], b_cum[:, :, j - 1],
+                      out=b_cum[:, :, j])
+        torch.mul(a_cum[:, :, j - 1], a[:, :, j], out=a_cum[:, :, j])
+    # the carry: h entering each chunk, then h_t = b_cum + a_cum h_in
+    h, h_in = h0, []
+    for i in range(n):
+        h_in.append(h)
+        h = torch.addcmul(b_cum[:, i, -1], a_cum[:, i, -1], h)
+    hs = torch.addcmul(b_cum, a_cum, torch.stack(h_in, 1)[:, :, None])
+    return hs.reshape(b, n * c, di, ds)[:, :t], h
+
+
+def _mamba_ssm_inputs(p: dict, xc: torch.Tensor, cfg: ModelConfig):
+    """Δ [..., di], the decays exp(Δ A) [..., di, ds], the inputs
+    Δ x B [..., di, ds] and C [..., ds], all fp32, from the conv output."""
+    dtr, ds = cfg.resolved_dt_rank, cfg.mamba_d_state
+    proj = linear(p["x_proj"], xc)
+    dt = F.softplus(linear(p["dt_proj"], proj[..., :dtr]).float())
+    bmat = proj[..., dtr:dtr + ds].float()
+    cmat = proj[..., dtr + ds:].float()
+    a = -torch.exp(p["a_log"])                                 # [di, ds]
+    decay = torch.exp(dt[..., None] * a)
+    inp = (dt * xc.float())[..., None] * bmat[..., None, :]
+    return decay, inp, cmat
+
+
+def mamba_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              state: Optional[MambaState] = None):
+    """Train/prefill.  x: [B, T, D] -> (y [B, T, D], MambaState)."""
+    b, t, _ = x.shape
+    di, ds, dc = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
+    xi, z = linear(p["in_proj"], x).chunk(2, dim=-1)
+    # depthwise causal conv1d over time
+    prev = state.conv if state is not None else torch.zeros(
+        b, dc - 1, di, dtype=xi.dtype, device=x.device)
+    xpad = torch.cat([prev, xi], dim=1)
+    conv_state = xpad[:, -(dc - 1):] if dc > 1 else prev
+    xc = sum(xpad[:, i:i + t] * p["conv_w"][i] for i in range(dc))
+    xc = F.silu(xc + p["conv_b"])
+    decay, inp, cmat = _mamba_ssm_inputs(p, xc, cfg)
+    h0 = state.h if state is not None else torch.zeros(
+        b, di, ds, dtype=torch.float32, device=x.device)
+    hs, h_end = _mamba_scan_chunked(decay, inp, h0, cfg.ssm_chunk)
+    y = torch.einsum("btds,bts->btd", hs, cmat)
+    y = (y + xc.float() * p["d_skip"]).to(x.dtype)
+    y = y * F.silu(z)
+    return linear(p["out_proj"], y), MambaState(conv=conv_state, h=h_end)
+
+
+def mamba_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                 state: MambaState):
+    """One-token decode; x: [B, 1, D].  Returns (y, the next MambaState);
+    the state passed in is not modified."""
+    xi, z = linear(p["in_proj"], x).chunk(2, dim=-1)          # [B, 1, di]
+    xfull = torch.cat([state.conv, xi], dim=1)                # [B, dc, di]
+    xc = F.silu(torch.einsum("bcd,cd->bd", xfull, p["conv_w"])
+                + p["conv_b"])                                # [B, di]
+    decay, inp, cmat = _mamba_ssm_inputs(p, xc, cfg)
+    h = decay * state.h + inp
+    y = torch.einsum("bds,bs->bd", h, cmat)
+    y = (y + xc.float() * p["d_skip"]).to(x.dtype)
+    y = y[:, None] * F.silu(z)
+    return linear(p["out_proj"], y), MambaState(conv=xfull[:, 1:], h=h)

@@ -52,39 +52,45 @@ def _ffn(p: dict, z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return mlp(p["mlp"], z)
 
 
+def _stack_into(stack, tree, i: int, n: int):
+    """Copy ``tree`` (nested dicts and lists of tensors) into entry ``i`` of
+    ``stack``, the same tree with ``[n, ...]`` leaves, allocated here when
+    ``stack`` is None.  Returns the stack."""
+    if isinstance(tree, dict):
+        stack = stack if stack is not None else dict.fromkeys(tree)
+        for k, v in tree.items():
+            stack[k] = _stack_into(stack[k], v, i, n)
+        return stack
+    if isinstance(tree, list):
+        stack = stack if stack is not None else [None] * len(tree)
+        for j, v in enumerate(tree):
+            stack[j] = _stack_into(stack[j], v, i, n)
+        return stack
+    if stack is None:
+        stack = torch.empty((n,) + tuple(tree.shape), dtype=tree.dtype,
+                            device=tree.device)
+    stack[i].copy_(tree)
+    return stack
+
+
 def _stacked_blocks(gen: torch.Generator, cfg: ModelConfig,
                     init_block=_init_block) -> dict:
     """Every block's tree (``init_block(gen, cfg)``) with ``[L, ...]``
     leaves.  Each leaf is allocated once and filled layer by layer, so the
     weights are never held twice: the peak is the stack plus one layer's
     tree."""
-    def empty(tree):
-        if isinstance(tree, dict):
-            return {k: empty(v) for k, v in tree.items()}
-        return torch.empty((cfg.num_layers,) + tuple(tree.shape),
-                           dtype=tree.dtype, device=tree.device)
-
-    def fill(dst, src, i):
-        if isinstance(dst, dict):
-            for k in dst:
-                fill(dst[k], src[k], i)
-        else:
-            dst[i].copy_(src)
-
     blocks = None
     for i in range(cfg.num_layers):
-        layer = init_block(gen, cfg)
-        if blocks is None:
-            blocks = empty(layer)
-        fill(blocks, layer, i)
-        del layer
+        blocks = _stack_into(blocks, init_block(gen, cfg), i, cfg.num_layers)
     return blocks
 
 
-def _layer(tree: dict, i: int) -> dict:
+def _layer(tree, i: int):
     """Layer ``i``'s parameters: views into the stacked leaves."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_layer(v, i) for v in tree]
     return tree[i]
 
 

@@ -5,8 +5,9 @@ The tree is what ``repro``'s ``model.init`` returns, mapped through
 ``np.asarray``: nested dicts with layer-stacked ``[L, ...]`` leaves under
 ``"blocks"`` (for ``moe``, ``blocks/moe/{router/w, w_gate, w_up, w_down}``
 with ``[L, E, ...]`` expert leaves; for ``ssm``, ``blocks/{ln1, tm, ln2,
-cm}``).  The port keeps that tree and those layouts, so the bridge is a
-leaf-by-leaf copy.  bf16 leaves arrive as ``ml_dtypes`` bfloat16 arrays;
+cm}``).  The ``hybrid`` tree stacks superblocks instead: ``superblocks/
+layers`` is a list of a superblock's layers, each leaf ``[n_sb, ...]``.  The
+port keeps those trees and layouts, so the bridge is a leaf-by-leaf copy.  bf16 leaves arrive as ``ml_dtypes`` bfloat16 arrays;
 they are viewed as ``uint16`` and then as ``torch.bfloat16``, bit for bit,
 without importing ``ml_dtypes``.
 """
@@ -37,32 +38,43 @@ def _convert(tree, device, dtype, path=""):
     if isinstance(tree, dict):
         return {k: _convert(v, device, dtype, f"{path}/{k}")
                 for k, v in tree.items()}
-    # the MoE router and RWKV's decay bias and bonus stay fp32 whatever the
-    # model's dtype, as in the reference's init
-    keep = path.endswith(("/moe/router/w", "/tm/w0", "/tm/u"))
+    if isinstance(tree, list):
+        return [_convert(v, device, dtype, f"{path}/{i}")
+                for i, v in enumerate(tree)]
+    # the MoE router, RWKV's decay bias and bonus, and Mamba's A and D stay
+    # fp32 whatever the model's dtype, as in the reference's init
+    keep = path.endswith(("/moe/router/w", "/tm/w0", "/tm/u",
+                          "/mamba/a_log", "/mamba/d_skip"))
     return _leaf(tree, device, None if keep else dtype)
 
 
 def from_numpy_params(tree: dict, cfg: ModelConfig, device,
                       dtype: Optional[torch.dtype] = None) -> dict:
     """Convert the reference's numpy parameter tree for a ``dense``,
-    ``moe`` or ``ssm`` config.  ``dtype`` casts every leaf but the fp32 MoE
-    router and RWKV ``w0`` and ``u`` (None keeps each leaf's own type)."""
-    if cfg.family not in ("dense", "moe", "ssm"):
+    ``moe``, ``ssm`` or ``hybrid`` config.  ``dtype`` casts every leaf but
+    the fp32 MoE router, RWKV ``w0`` and ``u`` and Mamba ``a_log`` and
+    ``d_skip`` (None keeps each leaf's own type)."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(f"family {cfg.family!r} is not yet ported")
-    want = {"embed", "blocks", "ln_f"} | (set() if cfg.tie_embeddings
-                                          else {"lm_head"})
+    if cfg.family == "hybrid":
+        stacked, lead, unit = ("superblocks",
+                               cfg.num_layers // cfg.attn_every, "superblocks")
+    else:
+        stacked, lead, unit = "blocks", cfg.num_layers, "layers"
+    want = {"embed", stacked, "ln_f"} | (set() if cfg.tie_embeddings
+                                         else {"lm_head"})
     if set(tree) != want:
         raise ValueError(f"parameter tree has {sorted(tree)}, "
                          f"{cfg.name} needs {sorted(want)}")
 
     def check_stacked(sub, path):
-        if isinstance(sub, dict):
-            for k, v in sub.items():
+        if isinstance(sub, (dict, list)):
+            items = sub.items() if isinstance(sub, dict) else enumerate(sub)
+            for k, v in items:
                 check_stacked(v, f"{path}/{k}")
-        elif np.shape(sub)[0] != cfg.num_layers:
+        elif np.shape(sub)[0] != lead:
             raise ValueError(f"{path}: leading dim {np.shape(sub)[0]} != "
-                             f"{cfg.num_layers} layers")
+                             f"{lead} {unit}")
 
-    check_stacked(tree["blocks"], "blocks")
+    check_stacked(tree[stacked], stacked)
     return _convert(tree, torch.device(device), dtype)

@@ -156,6 +156,7 @@ class ServingEngine:
         else:
             self.cache = model.init_cache(max_batch, s_max)
             self._decode = model.decode_step
+            self._insert = model.insert_prefill
         # speculative decoding: a draft model proposes, this model verifies
         # (attach validates the pairing: paged target, matching vocab)
         self.speculator = speculator
@@ -331,7 +332,8 @@ class ServingEngine:
         """The request's processed prefix blocks, ``(k, v)`` of
         [L, blocks, block_size, kvH, hd] on this pool's device.
         ``index_select`` copies, so the victim's blocks can be reused as
-        soon as the request is released."""
+        soon as the request is released.  None for a hybrid pool (its Mamba
+        states cannot travel: the thief restarts from chunk 0)."""
         if not hasattr(self.cache, "k"):
             return None
         blocks = self.alloc.blocks_of(req.rid)
@@ -556,6 +558,10 @@ class ServingEngine:
                     self.speculator.on_clear(i)
 
     def _insert_contiguous(self, slot: int, cache_one) -> None:
+        if self._insert is not None:
+            # per-leaf batch axes (hybrid: KV axis 1, Mamba states axis 2)
+            self.cache = self._insert(self.cache, cache_one, slot)
+            return
         ax = self.batch_axis
         for full, one in zip(self.cache, cache_one):
             idx = [slice(None)] * full.ndim

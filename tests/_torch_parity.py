@@ -27,18 +27,23 @@ def configs(arch="qwen2-1.5b", **over):
 
 
 #: leaves the reference initialises to constants: biases (0), norm scales
-#: (1), RWKV's token-shift mixes (0.5) and decay bias (-2)
-CONSTANT_LEAVES = ("b", "bias", "scale", "mu_x", "mu_k", "mu_r", "maa", "w0")
+#: (1), RWKV's token-shift mixes (0.5) and decay bias (-2), and Mamba's
+#: conv bias (0) and skip (1)
+CONSTANT_LEAVES = ("b", "bias", "scale", "mu_x", "mu_k", "mu_r", "maa", "w0",
+                   "conv_b", "d_skip")
 
 
 def perturb(tree, rng):
     """Add N(0, 0.3) noise to the leaves the reference initialises to
-    constants, so the parity tests exercise them."""
+    constants, so the parity tests exercise them (dicts and lists walked in
+    order)."""
     if isinstance(tree, dict):
         return {k: (rng.normal(0, 0.3, np.shape(v)).astype(np.float32)
                     + np.asarray(v, np.float32)
                     if k in CONSTANT_LEAVES else perturb(v, rng))
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [perturb(v, rng) for v in tree]
     return tree
 
 

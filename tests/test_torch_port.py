@@ -29,8 +29,8 @@ SERVE = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
 
 
 #: modules that must be among those scanned (the MoE slice's, the RWKV
-#: slice's with the last two kernels, speculative decoding's, and the
-#: scheduler and live cluster's)
+#: slice's with the last two kernels, speculative decoding's, the
+#: scheduler and live cluster's, and the hybrid's)
 REQUIRED = ("repro_torch.serving.speculative",
             "repro_torch.core.scheduler", "repro_torch.analysis.schedlint",
             "repro_torch.core.device.weighted_partition",
@@ -42,7 +42,8 @@ REQUIRED = ("repro_torch.serving.speculative",
             "repro_torch.kernels.moe_gmm.ref",
             "repro_torch.kernels.moe_gmm.build",
             "repro_torch.configs.rwkv6_3b", "repro_torch.models.ssm",
-            "repro_torch.models.rwkv_lm") + tuple(
+            "repro_torch.models.rwkv_lm", "repro_torch.configs.jamba_v01_52b",
+            "repro_torch.models.hybrid") + tuple(
     f"repro_torch.kernels.{k}{m}" for k in ("wkv6", "prefix_scan")
     for m in ("", ".ops", ".ref", ".build"))
 
@@ -111,7 +112,7 @@ def test_copies_are_found():
     names = {str(p.relative_to(PKG)) for p in COPIES}
     assert {"core/strategy.py", "core/task.py", "core/task_storage.py",
             "core/device/request_scheduler.py", "serving/paged_kv.py",
-            "configs/base.py"} <= names
+            "configs/base.py", "configs/jamba_v01_52b.py"} <= names
     assert {"core/machine.py", "core/metrics.py", "core/scheduler.py",
             "core/__init__.py", "runtime/elastic.py", "runtime/__init__.py"
             } | {f"apps/{m}.py" for m in APPS} \
@@ -204,6 +205,30 @@ def test_launcher_equality_gate_on_cpu_rwkv():
         assert f"{mode}: family 'ssm' has no paged path — skip" in out.stdout
 
 
+def test_launcher_equality_gate_on_cpu_hybrid():
+    """Scaled jamba-v0.1-52b (one superblock of 4 layers): contiguous and
+    paged give the same tokens; the chunk modes are skipped (no chunk
+    path, as in the reference)."""
+    out = subprocess.run(SERVE + ["--device", "cpu", "--arch",
+                                  "jamba-v0.1-52b"], env=ENV, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "OK: paged decode == contiguous decode (4 requests)" in out.stdout
+    for mode in ("paged+chunked", "paged+cache"):
+        assert f"{mode}: family 'hybrid' has no chunk path — skip" \
+            in out.stdout
+
+
+def test_launcher_spec_draft_refuses_hybrid():
+    """The hybrid cannot draft (its Mamba states cannot roll back)."""
+    out = subprocess.run(SERVE + ["--device", "cpu", "--arch",
+                                  "jamba-v0.1-52b", "--spec-draft",
+                                  "jamba-v0.1-52b"], env=ENV, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 2, out.stdout + out.stderr
+    assert "family 'hybrid' cannot draft" in out.stderr
+
+
 def test_launcher_spec_gate_on_cpu():
     """``--spec-draft self`` adds the ``paged+spec`` mode, whose tokens must
     equal the contiguous engine's."""
@@ -234,13 +259,24 @@ def test_launcher_without_cuda_fails_loudly():
     assert "no CUDA device" in out.stderr
 
 
-@pytest.mark.parametrize("flag", [["--arch", "jamba-v0.1-52b"]])
+@pytest.mark.parametrize("flag", [["--arch", "seamless-m4t-medium"]])
 def test_launcher_refuses_what_is_not_ported(flag):
     out = subprocess.run(SERVE + ["--device", "cpu"] + flag, env=ENV,
                          cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 2
     assert "not yet ported" in out.stderr
+
+
+def test_profile_serve_refuses_a_partial_superblock():
+    """The hybrid's depth must tile into superblocks of ``attn_every``."""
+    out = subprocess.run([sys.executable, "-m",
+                          "repro_torch.launch.profile_serve", "--arch",
+                          "jamba-v0.1-52b", "--layers", "12"], env=ENV,
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 2
+    assert "stacks superblocks of 8 layers" in out.stderr
 
 
 CLUSTER = [sys.executable, "-m", "repro_torch.launch.serve", "--device",
@@ -286,7 +322,7 @@ def test_build_model_defaults_to_cuda():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_model(cfg)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_model(cfg.replace(family="hybrid"), "cpu")
+        build_model(cfg.replace(family="encdec"), "cpu")
 
 
 def _ref_tree(arch="qwen2-1.5b", **over):
