@@ -23,6 +23,10 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      4096 window and a decode over the 1024-slot paged view, mixed kv_valid;
      at jamba-v0.1-52b's heads (32/8, no RoPE, no window): a 1024-token
      prefill and a decode over the 2048-slot paged view, mixed kv_valid;
+     at deepseek-coder-33b's heads (56/8, g = 7) and mistral-large-123b's
+     (96/8, g = 12): a 1024-token prefill and a decode over 2048 slots
+     (B = 8, mixed kv_valid), and for g = 12 at S = 4, where a kv head's
+     48 query rows take two CTAs (32 + 16 rows);
      then the split route's edges (T not a multiple of the chunk, T under
      one chunk, kv_valid 0, 1 and T in one batch, S = 2..4 causal with a
      q_offset, a window that empties the early chunks, g = 1, 6, 8, fp32);
@@ -42,7 +46,11 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      and D, F multiples of 8 but not 16 at a small shape; at
      jamba-v0.1-52b's (E = 16, D = 4096, F = 14336): decode (C = 8, a real
      top-2 routing of 8 tokens) and prefill (a real routing of 1024 tokens,
-     ~128 rows per expert); kernel and plain
+     ~128 rows per expert); at kimi-k2-1t-a32b's (E = 384, D = 7168,
+     F = 2048, on the served layer's own weights, in phase 9): decode
+     (C = 8, a real top-8 routing of 8 tokens) and prefill (C = 512, a real
+     top-8 routing of 512 tokens), the plain version taken 32 experts at a
+     time (widened to fp32, all 384 would not fit); kernel and plain
      version each also against the function computed in fp64 on a few rows
      per expert; device times of the kernel and of cuBLAS bmm;
    - WKV-6 at rwkv6-3b's heads (H = 40, N = 64): the bf16 prefill at
@@ -152,6 +160,25 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    at the inputs the reference's benchmarks give it, each held against
    its plain version.
 
+9. main paths 5-9, the remaining decoders at full width (random bf16
+   weights from --seed), each served like path 1 (tokens/s, decode step
+   ms, peak GB, launches held per call: flash once a layer, and for the
+   MoE grouped SwiGLU once a layer), then paged == contiguous on 4
+   requests (each engine freed before the next), then freed before the
+   next path (``DECODERS``, and each path's follow-up phases written
+   after it in ``main``): qwen3-8b whole (qk_norm, GQA 4:1), 16
+   requests of 64-1024 tokens, 32 new, then ``phase_spec`` with a
+   full-width qwen2-1.5b draft (the same vocab; acceptance recorded, no
+   minimum); deepseek-coder-33b whole (62 layers, GQA 7:1); mistral-large-
+   123b, 22 of its 88 layers (GQA 12:1); internvl2-26b's trunk and
+   projector whole (48 layers), then its image prefix (``phase_vlm``: 2
+   requests with random image_embeds [1, 256, 3200], 8 decode steps;
+   other image_embeds change the logits; decode against a fresh prefill of
+   the extended sequence, held in bf16 within the reference's 0.25 and in
+   fp32 on 4 layers within PROBE_TOL_FP32 of the largest |logit|);
+   kimi-k2-1t-a32b, 1 of its 61 layers (384 experts, top-8; s_max 1024,
+   prompts of 64-512 tokens), then the grouped-SwiGLU rows at its shapes.
+
 Every kernel launch of a path is counted by its wrapper, with the counts
 set to 0 just before the path and read just after, and held per engine
 call: each prefill and decode call launches a kernel once for every layer
@@ -163,10 +190,11 @@ two phases) each count once.  ``kernel_launches`` counts the kernels those
 calls launched.
 
 Two lines before the last is the JSON record of the kernels, of the
-speculative phases (``spec``) and of the cluster phases (``cluster``);
+speculative phases (``spec``), of the cluster phases (``cluster``), of the
+image prefix (``vlm``) and of main paths 5-9 (``decoders``);
 flash attention's rows at qwen2-1.5b's heads count the cluster runs'
-launches too; every row lists its kernel's launches on each path in
-``launches_by_path``.  Then the
+launches too (the image-prefix runs are added to no row); every row lists
+its kernel's launches on each path in ``launches_by_path``.  Then the
 card's name and power limit; the last is ``{"ok": true, "device":
 {...}}``.
 """
@@ -214,6 +242,7 @@ from repro_torch.kernels.wkv6.ref import wkv6_plain  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.attention import PagedKVCache  # noqa: E402
+from repro_torch.models.transformer import _layer  # noqa: E402
 from repro_torch.serving import ServingEngine, Speculator  # noqa: E402
 from repro_torch.serving import speculative  # noqa: E402
 
@@ -292,6 +321,22 @@ AUTOSCALE_TARGET = 128
 #: largest |logit|
 JAMBA_LAYERS = 16
 HANDOFF_TOL_FP32 = 1e-3
+#: main paths 5-9, the remaining decoders at full width: arch -> (layers
+#: on one card (None: all), s_max, requests, longest prompt, new tokens).
+#: mistral-large-123b keeps 22 of 88 layers (62.5 GB in bf16), cut as
+#: Mixtral is; kimi-k2-1t-a32b 1 of 61 (17.05B parameters a layer: two
+#: would leave no room for the dropless [384, T, 7168] dispatch buffers)
+DECODERS = {"qwen3-8b": (None, 2048, 16, 1024, 32),
+            "deepseek-coder-33b": (None, 2048, 8, 1024, 16),
+            "mistral-large-123b": (22, 2048, 8, 1024, 16),
+            "internvl2-26b": (None, 2048, 8, 1024, 16),
+            "kimi-k2-1t-a32b": (1, 1024, 8, 512, 16)}
+#: the image-prefix check: text tokens after the image tokens, greedy
+#: decode steps; experts a slice of the grouped-SwiGLU plain version at
+#: Kimi's 384 (it widens the weights to fp32: all at once would not fit)
+VLM_TEXT = 256
+VLM_STEPS = 8
+PLAIN_EXPERTS = 32
 
 
 def _zero_counts() -> None:
@@ -474,11 +519,13 @@ def phase_flash_probe() -> None:
 def phase_kernels(seed: int) -> list:
     """flash_attention against its plain version at each main path's
     shapes: qwen2-1.5b's 12/2 heads, Mixtral-8x22B's 48/8 heads (whose
-    prefill passes the 4096 window, decode the paged view of s_max 1024)
-    and jamba-v0.1-52b's 32/8 (GQA packing g = 4; no RoPE and no window,
-    which the kernel never sees)."""
+    prefill passes the 4096 window, decode the paged view of s_max 1024),
+    jamba-v0.1-52b's 32/8 (GQA packing g = 4; no RoPE and no window,
+    which the kernel never sees), deepseek-coder-33b's 56/8 (g = 7) and
+    mistral-large-123b's 96/8 (g = 12)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     qwen, mixtral, jamba = "qwen2-1.5b", "mixtral-8x22b", "jamba-v0.1-52b"
+    deepseek, mistral = "deepseek-coder-33b", "mistral-large-123b"
     cases = [
         # path, name, dtype, B, S, T, H, Hkv, causal, window, q_offset,
         # kv_valid
@@ -502,6 +549,16 @@ def phase_kernels(seed: int) -> list:
          None, 0, None),
         (jamba, "jamba_decode", torch.bfloat16, 8, 1, 2048, 32, 8, False,
          None, 0, [65, 2048, 130, 1025, 1, 300, 1700, 529]),
+        (deepseek, "deepseek_prefill", torch.bfloat16, 1, 1024, 1024, 56, 8,
+         True, None, 0, None),
+        (deepseek, "deepseek_decode", torch.bfloat16, 8, 1, 2048, 56, 8,
+         False, None, 0, [65, 2048, 130, 1025, 1, 300, 1700, 529]),
+        (mistral, "mistral_large_prefill", torch.bfloat16, 1, 1024, 1024, 96,
+         8, True, None, 0, None),
+        (mistral, "mistral_large_decode", torch.bfloat16, 8, 1, 2048, 96, 8,
+         False, None, 0, [65, 2048, 130, 1025, 1, 300, 1700, 529]),
+        (mistral, "split_S4_g12", torch.bfloat16, 8, 4, 2048, 96, 8, True,
+         None, 2044, [2048, 4, 513, 1700, 64, 1025, 2047, 300]),
         # the split route's edges: T not a multiple of the chunk with
         # kv_valid 0, 1 and T in one batch; T under one chunk; S = 2..4
         # with causal and a bottom-right q_offset; a window that leaves the
@@ -613,15 +670,15 @@ def phase_kernels(seed: int) -> list:
     return rows
 
 
-def _routed(g, n, e, d, dtype):
-    """A real dropless routing of n random tokens over e experts: the
+def _routed(g, n, e, d, dtype, k=2):
+    """A real dropless top-k routing of n random tokens over e experts: the
     dispatch buffer [e, n, d] and the plan's load."""
     x = torch.randn(n, d, generator=g, device="cuda").to(dtype)
     router = torch.randn(d, e, generator=g, device="cuda") / d ** 0.5
-    idx, gate, probs = route_topk(x.float() @ router, 2)
+    idx, gate, probs = route_topk(x.float() @ router, k)
     plan = priority_dispatch(idx, gate, probs, num_experts=e, capacity=n,
                              resteal=True)
-    return gather_expert_inputs(x, plan, 2), plan.load
+    return gather_expert_inputs(x, plan, k), plan.load
 
 
 def _gmm_bound(x, f, load):
@@ -719,14 +776,28 @@ def phase_gmm_kernel(seed: int) -> list:
     return rows
 
 
-def _gmm_rows(cases) -> list:
+def _gmm_plain(x, wg, wu, wd, load, experts=None):
+    """The plain version on the whole buffer, or (``experts``) on slices of
+    that many experts at a time: every expert's rows are computed alone,
+    so the slices give the same function on the same inputs."""
+    if experts is None:
+        return grouped_swiglu_plain(x, wg, wu, wd, load)
+    return torch.cat([grouped_swiglu_plain(x[i:i + experts],
+                                           wg[i:i + experts],
+                                           wu[i:i + experts],
+                                           wd[i:i + experts])
+                      for i in range(0, x.shape[0], experts)])
+
+
+def _gmm_rows(cases, plain_experts=None) -> list:
     """Each case (path, name, x, load, weights): the kernel against its
-    plain version, fp64 errors, times and bound."""
+    plain version (on slices of ``plain_experts`` experts, if set), fp64
+    errors, times and bound."""
     rows = []
     for path, name, x, load, (wg, wu, wd) in cases:
         got = gmm_ops.grouped_swiglu(x, wg, wu, wd, load)
         torch.cuda.synchronize()
-        want = grouped_swiglu_plain(x, wg, wu, wd, load)
+        want = _gmm_plain(x, wg, wu, wd, load, plain_experts)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         tol = TOL[x.dtype]
@@ -751,8 +822,11 @@ def _gmm_rows(cases) -> list:
             max_abs_err=err, max_err=err, tol=tol, ms=ms, kernel_ms=ms,
             err_fp64=err64, plain_err_fp64=plain_err64,
             bitwise_equal=bool(torch.equal(got, want)),
-            plain_ms=_time_ms(lambda: grouped_swiglu_plain(x, wg, wu, wd,
-                                                           load)),
+            plain_ms=_time_ms(lambda: _gmm_plain(x, wg, wu, wd, load,
+                                                 plain_experts),
+                              reps=15 if plain_experts is None else 3,
+                              warmup=3 if plain_experts is None else 1),
+            plain_experts_a_call=plain_experts,
             library_ms=_time_ms(lambda: _gmm_library(x, wg, wu, wd)),
             library="torch.bmm x3 (cuBLAS) + silu*mul cast",
             device_ms=_device_ms(lambda: gmm_ops.grouped_swiglu(
@@ -1097,7 +1171,10 @@ def phase_main_path(model, params, prompts, *, s_max, max_new, kv_mode,
 
 
 def phase_paged_equals_contiguous(model, params, prompts, s_max) -> None:
+    """Each engine is freed before the next one starts (deepseek-coder-33b
+    at full depth leaves room for one cache only)."""
     results = {}
+    torch.cuda.reset_peak_memory_stats()
     for mode in ("contiguous", "paged"):
         eng = ServingEngine(model, params, max_batch=8, s_max=s_max,
                             block_size=16, kv_mode=mode)
@@ -1107,11 +1184,15 @@ def phase_paged_equals_contiguous(model, params, prompts, s_max) -> None:
         if not all(r.state.name == "DONE" for r in reqs):
             raise AssertionError(f"{mode}: not every request finished")
         results[mode] = [outs[r.rid] for r in reqs]
+        del eng, reqs, outs
+        gc.collect()
+        torch.cuda.empty_cache()
     if results["paged"] != results["contiguous"]:
         raise AssertionError(f"{model.cfg.name}: paged and contiguous "
                              "tokens differ")
     print(f"paged == contiguous ({model.cfg.name}): {len(prompts)} requests, "
-          f"{sum(map(len, results['paged']))} identical tokens")
+          f"{sum(map(len, results['paged']))} identical tokens, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9} GB")
 
 
 def _cluster_serve(model, params, prompts, *, max_new, prefill_chunk,
@@ -1466,8 +1547,8 @@ def phase_spec(model, params, prompts, *, s_max, max_new, drafts,
     engine for each of ``drafts`` ((name, Speculator, least acceptance or
     None)) on the same prompts.  Checks, beyond ``_spec_run``'s: rounds >
     0; the self draft's acceptance at least its bound, a cross draft's
-    wasted > 0; flash attention launched once a layer in every draft step
-    and never in a verify call; with ``moe``, grouped SwiGLU once a layer
+    wasted > 0; flash attention launched once a draft layer in every draft
+    step and never in a verify call; with ``moe``, grouped SwiGLU once a layer
     in every verify call and its dispatch reaching C = B (k + 1).  The share
     of tokens equal to the plain engine's is printed, not asserted: verify
     takes the masked path, plain decode the split kernel (P rounded to
@@ -1503,7 +1584,8 @@ def phase_spec(model, params, prompts, *, s_max, max_new, drafts,
                 raise AssertionError(f"{name}: the cross draft wasted "
                                      "nothing")
             draft, verify = ph["draft"], ph["verify"]
-            if draft.launches["flash_attention"] != layers * draft.calls \
+            if draft.launches["flash_attention"] != \
+                    spec.draft_model.cfg.num_layers * draft.calls \
                     or verify.launches["flash_attention"] != 0:
                 raise AssertionError(
                     f"{name}: flash launches {draft.launches} in "
@@ -1815,6 +1897,103 @@ def phase_hybrid_handoff(model, params, prompts, bound_rel=None) -> dict:
     return out
 
 
+def phase_vlm(model, params, seed, bound_abs=None, bound_rel=None) -> dict:
+    """The image prefix (the engine serves a VLM text-only, as the
+    reference's does): 2 requests of VLM_TEXT tokens, each with random
+    ``image_embeds`` [1, num_image_tokens, vision_embed_dim] from the seed,
+    prefilled in one ``Model.prefill`` call, then VLM_STEPS greedy steps of
+    the contiguous ``decode_step``, with the counts set to 0 just before
+    and read just after.  Checks: finite logits; flash attention once a
+    layer in the prefill and in every step; other ``image_embeds`` change
+    the prefill's logits (by more than 1e-3 of the largest |logit|); the
+    last step's logits against a fresh prefill of the extended sequence
+    (image, text and the tokens decoded), held within ``bound_abs`` (bf16:
+    the reference's bound between two computations of the same logits)
+    or within ``bound_rel`` of the largest |logit| (fp32)."""
+    cfg = model.cfg
+    g = torch.Generator(device="cuda").manual_seed(seed + 20)
+    n_img, layers = cfg.num_image_tokens, cfg.num_layers
+    s_max = n_img + VLM_TEXT + VLM_STEPS
+    toks = torch.randint(0, cfg.vocab_size, (2, VLM_TEXT), generator=g,
+                         device="cuda")
+    img, other = (torch.randn(2, n_img, cfg.vision_embed_dim, generator=g,
+                              device="cuda") for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": toks,
+                                           "image_embeds": img}, s_max)
+    prefill_flash = ops.flash_attention.launches
+    gen = [logits[:, -1].argmax(-1)]
+    for i in range(VLM_STEPS):
+        logits, cache = model.decode_step(params, gen[-1][:, None], cache,
+                                          n_img + VLM_TEXT + i)
+        gen.append(logits[:, -1].argmax(-1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in COUNTERS.items()}
+    want = dict(dict.fromkeys(COUNTERS, 0),
+                flash_attention=layers * (1 + VLM_STEPS))
+    if prefill_flash != layers or launches != want:
+        raise AssertionError(f"image-prefix launches {launches} (prefill "
+                             f"{prefill_flash}), expected {want}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite logits")
+    first = model.prefill(params, {"tokens": toks, "image_embeds": img},
+                          s_max)[0].float()
+    moved = (model.prefill(params, {"tokens": toks, "image_embeds": other},
+                           s_max)[0].float() - first).abs().max().item()
+    top0 = first.abs().max().item()
+    extended = torch.cat([toks, torch.stack(gen[:-1], 1)], 1)
+    fresh = model.prefill(params, {"tokens": extended, "image_embeds": img},
+                          s_max)[0].float()
+    err = (fresh - logits.float()).abs().max().item()
+    top = fresh.abs().max().item()
+    out = dict(arch=cfg.name, dtype=cfg.dtype, layers=layers,
+               image_embeds=[2, n_img, cfg.vision_embed_dim], text=VLM_TEXT,
+               steps=VLM_STEPS, wall_s=wall, launches=launches,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               other_image_max_diff=moved, max_abs_logit_prefill=top0,
+               decode_vs_prefill_err=err, max_abs_logit=top,
+               same_argmax=bool(torch.equal(fresh[:, -1].argmax(-1),
+                                            gen[-1])),
+               bound_abs=bound_abs, bound_rel=bound_rel)
+    print("vlm image prefix: " + json.dumps(out))
+    if not moved > 1e-3 * top0:
+        raise AssertionError(f"other image_embeds moved the logits by "
+                             f"{moved} (max |logit| {top0})")
+    if (bound_abs is not None and not err <= bound_abs) or \
+            (bound_rel is not None and not err <= bound_rel * top):
+        raise AssertionError(f"{cfg.name} {cfg.dtype}: decode after the "
+                             f"image prefix is {err} from a fresh prefill "
+                             f"(max |logit| {top}, bounds {bound_abs}, "
+                             f"{bound_rel} relative)")
+    return out
+
+
+def phase_decoder(arch, rng, seed) -> tuple:
+    """Main paths 5-9: ``arch`` at full width (its ``DECODERS`` depth),
+    served paged with the counts held per call (flash once a layer;
+    grouped SwiGLU once a layer for an MoE), then paged == contiguous on 4
+    of its prompts.  Returns (model, params, prompts, stats)."""
+    layers, s_max, n_req, longest, max_new = DECODERS[arch]
+    cfg = get_config(arch).replace(use_flash=True)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    model, params = _init(cfg, seed)
+    prompts = _prompts(rng, n_req, cfg.vocab_size, longest=longest)
+    n = cfg.num_layers
+    kernels = {"flash_attention": (n, n)}
+    if cfg.num_experts:
+        kernels["grouped_swiglu"] = (n, n)
+    stats = phase_main_path(model, params, prompts, s_max=s_max,
+                            max_new=max_new, kv_mode="paged",
+                            kernels=kernels)
+    phase_paged_equals_contiguous(model, params, prompts[:4], s_max)
+    return model, params, prompts, stats
+
+
 def _init(cfg, seed):
     model = build_model(cfg, "cuda")
     t0 = time.perf_counter()
@@ -1958,24 +2137,86 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # main paths 5-9: the remaining decoders at full width, each freed
+    # before the next, with its own follow-up phases
+    decoders, vlm = {}, {}
+    arch = "qwen3-8b"      # then speculation with a qwen2-1.5b draft
+    model, params, prompts, decoders[arch] = phase_decoder(arch, rng,
+                                                           args.seed)
+    dcfg = get_config("qwen2-1.5b").replace(use_flash=True)
+    dmodel = build_model(dcfg, "cuda")
+    dparams = dmodel.init(args.seed + 1)
+    _, s_max, _, _, max_new = DECODERS[arch]
+    spec[arch] = phase_spec(
+        model, params, prompts[:8], s_max=s_max, max_new=max_new,
+        drafts=[("qwen2-1.5b", Speculator(dmodel, dparams, k=SPEC_K,
+                                          adaptive=True), None)])
+    del model, params, dmodel, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in ("deepseek-coder-33b", "mistral-large-123b"):
+        model, params, _, decoders[arch] = phase_decoder(arch, rng,
+                                                         args.seed)
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    arch = "internvl2-26b"   # then its image prefix
+    model, params, _, decoders[arch] = phase_decoder(arch, rng, args.seed)
+    vlm["bf16"] = phase_vlm(model, params, args.seed,
+                            bound_abs=BF16_LOGIT_TOL)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch = "kimi-k2-1t-a32b"   # then grouped SwiGLU's rows at 384 experts
+    model, params, _, decoders[arch] = phase_decoder(arch, rng, args.seed)
+    moe = _layer(params["blocks"], 0)["moe"]
+    w = (moe["w_gate"], moe["w_up"], moe["w_down"])
+    e, d = model.cfg.num_experts, model.cfg.d_model
+    k = model.cfg.num_experts_per_tok
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 21)
+    gmm_rows += _gmm_rows(
+        [(arch, "kimi_decode", *_routed(g, 8, e, d, torch.bfloat16, k=k), w),
+         (arch, "kimi_prefill_512",
+          *_routed(g, 512, e, d, torch.bfloat16, k=k), w)],
+        plain_experts=PLAIN_EXPERTS)
+    del model, params, moe, w
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the image-prefix check held in fp32: 4 of 48 layers at full width
+    cfg = get_config("internvl2-26b").replace(
+        num_layers=4, dtype="float32", param_dtype="float32", use_flash=True)
+    model, params = _init(cfg, args.seed)
+    vlm["fp32"] = phase_vlm(model, params, args.seed,
+                            bound_rel=PROBE_TOL_FP32)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # each row carries its kernel's launches on the path it was sized for
-    # (the fp32 and synthetic-mask rows: the path whose heads they use)
-    # (the cluster runs: flash's launches under their own path names, and
-    # added into the qwen rows' count)
+    # (the fp32 and synthetic-mask rows: the path whose heads they use);
+    # the cluster runs serve qwen2-1.5b, so their launches are added into
+    # the qwen rows' count; the image-prefix runs are listed under their
+    # own names only
     by_path = {p["arch"]: p["launches"]
-               for p in (qwen, mixtral, rwkv, jamba, scan_path)}
-    extra = {cluster[k]["path"]: cluster[k]["launches"]
-             for k in ("chunked", "whole")}
+               for p in (qwen, mixtral, rwkv, jamba, *decoders.values(),
+                         scan_path)}
+    cluster_runs = {cluster[k]["path"]: cluster[k]["launches"]
+                    for k in ("chunked", "whole")}
+    vlm_runs = {f"internvl2-26b image prefix {k}": v["launches"]
+                for k, v in vlm.items()}
     rows = flash_rows + gmm_rows + wkv_rows + scan_rows
     for row in rows:
         row["launches"] = by_path[row["path"]][row["name"]]
         row["launches_by_path"] = {
-            p: n[row["name"]] for p, n in {**by_path, **extra}.items()
+            p: n[row["name"]]
+            for p, n in {**by_path, **cluster_runs, **vlm_runs}.items()
             if n[row["name"]]}
         if row["path"] == "qwen2-1.5b":
-            row["launches"] += sum(n[row["name"]] for n in extra.values())
+            row["launches"] += sum(n[row["name"]]
+                                   for n in cluster_runs.values())
     print(json.dumps({"kernels": rows, "spec": spec, "cluster": cluster,
-                      "hybrid_handoff": handoff}))
+                      "hybrid_handoff": handoff, "vlm": vlm,
+                      "decoders": decoders}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,16 @@
-"""Architecture configs ported so far: ``qwen2-1.5b``, ``mixtral-8x22b``,
-``rwkv6-3b``, ``jamba-v0.1-52b``."""
+"""Architecture configs ported so far: every decoder of the reference
+(``qwen2-1.5b``, ``qwen3-8b``, ``deepseek-coder-33b``,
+``mistral-large-123b``, ``internvl2-26b``, ``mixtral-8x22b``,
+``kimi-k2-1t-a32b``, ``rwkv6-3b``, ``jamba-v0.1-52b``); the
+encoder-decoder ``seamless-m4t-medium`` is not yet ported."""
 from .base import ModelConfig, list_configs, register, scale_down
 from .base import get_config as _get_config
 
 _LOADED = False
 
-_ARCH_MODULES = ("qwen2_1_5b", "mixtral_8x22b", "rwkv6_3b",
-                 "jamba_v01_52b")
+_ARCH_MODULES = ("deepseek_coder_33b", "internvl2_26b", "jamba_v01_52b",
+                 "kimi_k2_1t_a32b", "mistral_large_123b", "mixtral_8x22b",
+                 "qwen2_1_5b", "qwen3_8b", "rwkv6_3b")
 
 
 def _load_all() -> None:

@@ -143,17 +143,33 @@ def gather_expert_inputs(x: torch.Tensor, plan: DispatchPlan,
 def combine_expert_outputs(y_buf: torch.Tensor, plan: DispatchPlan,
                            num_tokens: int, num_choices: int) -> torch.Tensor:
     """Scatter expert outputs back and apply combine (gate) weights.
-    y_buf: [E, C, D] → [T, D].  The fp32 sum starts from 0, so for
-    ``num_choices == 2`` each token's two contributions give the same bits
-    in either order: the scatter-add is deterministic there on any device."""
+    y_buf: [E, C, D] -> [T, D].
+
+    The reference scatter-adds the flat [E*C] slots into an fp32 zero
+    buffer, which adds a token's contributions in ascending slot order
+    (ascending expert, since a token's choices are distinct experts).
+    Here each token's slots are gathered in that order ([T, k] flat slot
+    indices, -1 for a dropped choice, sorted by row) and added from +0 one
+    choice at a time: the reference's bits on the CPU at any k, and the
+    same bits on every run on a GPU, with no [E*C, D] buffer."""
     e, c, d = y_buf.shape
     flat_src = plan.slot_src.reshape(e * c)
     valid = flat_src >= 0
-    token = torch.where(valid, flat_src // num_choices, num_tokens)
-    gate = plan.gate.reshape(-1)[flat_src.clamp(min=0).long()]
-    contrib = (y_buf.reshape(e * c, d).float()
-               * (gate * valid)[:, None])
-    out = torch.zeros(num_tokens + 1, d, dtype=torch.float32,
+    a = num_tokens * num_choices
+    # invert slot -> assignment into assignment -> slot; empty slots write
+    # the extra entry a, cut off below
+    slot_of = torch.full((a + 1,), -1, dtype=torch.int64,
+                         device=y_buf.device)
+    slot_of[torch.where(valid, flat_src, a).long()] = torch.arange(
+        e * c, device=y_buf.device)
+    slots = slot_of[:a].reshape(num_tokens, num_choices).sort(dim=-1).values
+    idx = slots.clamp(min=0)
+    gate_of_slot = plan.gate.reshape(-1)[flat_src.clamp(min=0).long()]
+    weight = gate_of_slot[idx] * (slots >= 0)
+    contrib = (y_buf.reshape(e * c, d)[idx].float()
+               * weight[..., None])                       # [T, k, D]
+    out = torch.zeros(num_tokens, d, dtype=torch.float32,
                       device=y_buf.device)
-    out.index_add_(0, token.long(), contrib)
-    return out[:num_tokens].to(y_buf.dtype)
+    for j in range(num_choices):
+        out = out + contrib[:, j]
+    return out.to(y_buf.dtype)

@@ -12,11 +12,17 @@ with random weights at the serving shape of ``chip_smoke.py``'s main paths.
         --arch rwkv6-3b --out build/profile_rwkv.json
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch jamba-v0.1-52b --layers 16 --out build/profile_jamba.json
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch qwen3-8b --out build/profile_qwen3.json
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch kimi-k2-1t-a32b --layers 1 --out build/profile_kimi.json
 
 ``--layers`` cuts the depth (the widths stay as published): full
 Mixtral-8x22B needs ~281 GB, so one card holds 8 of its 56 layers; full
 Jamba ~104 GB, so one card holds 2 of its 4 superblocks (16 of 32 layers;
-the hybrid's depth must be a multiple of its superblock, ``attn_every``).
+the hybrid's depth must be a multiple of its superblock, ``attn_every``);
+mistral-large-123b 22 of its 88 layers and kimi-k2-1t-a32b 1 of its 61
+(17.05B parameters a layer).
 
 Prints one JSON object with, per window: host wall time (taken without the
 profiler, on the same calls just before), device busy time (the sum of

@@ -23,6 +23,13 @@ attention KV pages, its Mamba states stay per slot, and it has no chunked
 prefill, prefix cache or verify path, so ``--check-paged-equality`` runs
 ``contiguous`` and ``paged`` only.  Full Jamba does not fit one card
 (``chip_smoke.py`` serves 16 of its 32 layers at full width).
+``--arch qwen3-8b`` (``qk_norm``), ``deepseek-coder-33b`` and
+``internvl2-26b`` (served text-only, as in the reference) fit one card
+whole; full ``mistral-large-123b`` (246 GB) and ``kimi-k2-1t-a32b`` (384
+experts, top-8; ~2 TB) do not, so on the GPU run them with ``--smoke``
+(``chip_smoke.py`` serves 22 and 1 of their layers at full width).
+qwen3-8b shares qwen2-1.5b's vocab, so ``--arch qwen3-8b --spec-draft
+qwen2-1.5b`` drafts with the smaller model.
 
 Speculative decoding: ``--spec-draft self`` (the target drafts for itself)
 or a ported zoo name with the target's vocab; ``--spec-k`` and
@@ -48,6 +55,7 @@ The flags are those of ``repro.launch.serve`` plus ``--device``.
 from __future__ import annotations
 
 import argparse
+import itertools
 import sys
 import time
 from collections import Counter
@@ -326,8 +334,16 @@ def _serve_cluster(args, model, params, cfg, draft=None) -> int:
     else:
         tel = router.telemetry
         kill_after = max(1, len(submitted) // 4)
-        for step in range(200_000):
-            router.step()
+        # the heartbeat counts seconds, not steps: a step in which no live
+        # engine had work does not count against the step budget, so work
+        # stranded on a killed engine waits for the heartbeat however fast
+        # an idle step is; idling ten timeouts in a row fails
+        busy_steps, idle_since = 0, None
+        for step in itertools.count():
+            if router.step() > 0:
+                busy_steps, idle_since = busy_steps + 1, None
+            elif idle_since is None:
+                idle_since = time.monotonic()
             if (args.chaos == "kill-one" and killed is None
                     and tel.finished >= kill_after and router.outstanding):
                 # kill the engine that owns the most in-flight work, so the
@@ -365,10 +381,12 @@ def _serve_cluster(args, model, params, cfg, draft=None) -> int:
                         print(f"[autoscale] retiring replica {victim}")
             if router.drained():
                 break
-        else:
-            print("FAIL: cluster did not drain within step budget",
-                  file=sys.stderr)
-            return 1
+            if busy_steps >= 200_000 or (
+                    idle_since is not None and time.monotonic() - idle_since
+                    > 10 * args.heartbeat_timeout):
+                print("FAIL: cluster did not drain within step budget",
+                      file=sys.stderr)
+                return 1
 
     dt = time.perf_counter() - t0
     done = sum(1 for r in reqs if r.state.name == "DONE")

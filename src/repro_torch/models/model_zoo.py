@@ -1,5 +1,7 @@
 """Uniform model interface (``Model``, ``build_model``) for the ported
-families: ``dense`` and ``moe`` (one trunk, as in the reference), ``ssm``
+families: ``dense``, ``moe`` and ``vlm`` (one trunk, as in the reference:
+the engine serves a VLM text-only, and ``prefill`` takes a batch's
+``image_embeds``), ``ssm``
 (RWKV-6, no paged path) and ``hybrid`` (Jamba: paged attention KV, Mamba
 states per slot; no chunked prefill, prefix caching or verify path).
 
@@ -105,7 +107,7 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
             # chunked prefill needs Mamba state carry across chunks: the
             # hybrid prefills whole prompts (still paged for decode)
         )
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(f"family {cfg.family!r} is not yet ported "
                                   "to repro_torch")
     return Model(

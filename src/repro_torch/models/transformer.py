@@ -1,16 +1,19 @@
-"""Decoder-only transformer trunk (the ``dense`` and ``moe`` families).
+"""Decoder-only transformer trunk (the ``dense``, ``moe`` and ``vlm``
+families).
 
 The PyTorch counterpart of ``repro/models/transformer.py``.  Parameters keep
 the reference's layer-stacked ``[L, ...]`` leaves; the reference's
 ``lax.scan`` over layers is a Python loop that takes layer ``l``'s views.
-KV caches are written in place (see ``attention``).  The VLM trunk is not
-yet ported.
+KV caches are written in place (see ``attention``).  The VLM trunk is the
+dense one with a projector (``vis_proj``) whose outputs prefix the prompt's
+token embeddings when a batch carries ``image_embeds``.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from .attention import (KVCache, PagedKVCache, attention_decode,
@@ -67,6 +70,8 @@ def _stack_into(stack, tree, i: int, n: int):
             stack[j] = _stack_into(stack[j], v, i, n)
         return stack
     if stack is None:
+        if n == 1:      # one layer: a view of it, not a second copy
+            return tree.unsqueeze(0)
         stack = torch.empty((n,) + tuple(tree.shape), dtype=tree.dtype,
                             device=tree.device)
     stack[i].copy_(tree)
@@ -78,7 +83,7 @@ def _stacked_blocks(gen: torch.Generator, cfg: ModelConfig,
     """Every block's tree (``init_block(gen, cfg)``) with ``[L, ...]``
     leaves.  Each leaf is allocated once and filled layer by layer, so the
     weights are never held twice: the peak is the stack plus one layer's
-    tree."""
+    tree (a stack of one layer views that layer's tree, with no copy)."""
     blocks = None
     for i in range(cfg.num_layers):
         blocks = _stack_into(blocks, init_block(gen, cfg), i, cfg.num_layers)
@@ -97,9 +102,6 @@ def _layer(tree, i: int):
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Random parameters on ``gen.device`` with the reference's tree,
     layouts and distributions (not its numbers: the generators differ)."""
-    if cfg.vision_embed_dim:
-        raise NotImplementedError(f"{cfg.name}: the VLM trunk is not yet "
-                                  "ported")
     dt = dtype_of(cfg)
     params = {
         "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dt),
@@ -109,7 +111,28 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab_size,
                                         dtype=dt)
+    if cfg.vision_embed_dim:
+        # 2-layer projector: vision hidden -> d_model (InternVL-style)
+        params["vis_proj"] = {
+            "fc1": init_linear(gen, cfg.vision_embed_dim, cfg.d_model,
+                               dtype=dt),
+            "fc2": init_linear(gen, cfg.d_model, cfg.d_model, dtype=dt),
+        }
     return params
+
+
+def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig):
+    """Token (+ optional image) embeddings -> [B, S, D].  The image tokens
+    are prefixed, so positions run over ``num_image_tokens + S``.  The
+    projector's GELU is the tanh form, ``jax.nn.gelu``'s default."""
+    x = embed(params["embed"], batch["tokens"])
+    if cfg.vision_embed_dim and "image_embeds" in batch:
+        vp = params["vis_proj"]
+        img = linear(vp["fc2"], F.gelu(
+            linear(vp["fc1"], batch["image_embeds"].to(x.dtype)),
+            approximate="tanh"))
+        x = torch.cat([img, x], dim=1)
+    return x
 
 
 def _block_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig, positions, mask):
@@ -145,8 +168,9 @@ def init_lm_cache(cfg: ModelConfig, batch: int, s_max: int,
 
 def lm_prefill(params: dict, batch: dict, cfg: ModelConfig,
                s_max: Optional[int] = None):
-    """Run the prompt, return (last-position logits, filled cache)."""
-    x = embed(params["embed"], batch["tokens"])
+    """Run the prompt (after its image prefix, if the batch has one),
+    return (last-position logits, filled cache)."""
+    x = _embed_inputs(params, batch, cfg)
     b, s, _ = x.shape
     s_max = s_max or s
     positions = torch.arange(s, device=x.device)[None, :]
@@ -219,7 +243,7 @@ def lm_prefill_chunk_paged(params: dict, batch: dict, cache: PagedKVCache,
     """Run one chunk of a single request's prompt (tokens [1, c]) against
     its block table, writing the chunk's K/V into the pool.  Returns
     (last-position logits [1, 1, V], the pool)."""
-    x = embed(params["embed"], batch["tokens"])
+    x = _embed_inputs(params, batch, cfg)
     for i in range(cfg.num_layers):
         p = _layer(params["blocks"], i)
         attn, _ = attention_prefill_chunk_paged(

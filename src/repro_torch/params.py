@@ -5,7 +5,8 @@ The tree is what ``repro``'s ``model.init`` returns, mapped through
 ``np.asarray``: nested dicts with layer-stacked ``[L, ...]`` leaves under
 ``"blocks"`` (for ``moe``, ``blocks/moe/{router/w, w_gate, w_up, w_down}``
 with ``[L, E, ...]`` expert leaves; for ``ssm``, ``blocks/{ln1, tm, ln2,
-cm}``).  The ``hybrid`` tree stacks superblocks instead: ``superblocks/
+cm}``; ``vlm`` adds the unstacked projector ``vis_proj/{fc1, fc2}/w``).
+The ``hybrid`` tree stacks superblocks instead: ``superblocks/
 layers`` is a list of a superblock's layers, each leaf ``[n_sb, ...]``.  The
 port keeps those trees and layouts, so the bridge is a leaf-by-leaf copy.  bf16 leaves arrive as ``ml_dtypes`` bfloat16 arrays;
 they are viewed as ``uint16`` and then as ``torch.bfloat16``, bit for bit,
@@ -51,10 +52,10 @@ def _convert(tree, device, dtype, path=""):
 def from_numpy_params(tree: dict, cfg: ModelConfig, device,
                       dtype: Optional[torch.dtype] = None) -> dict:
     """Convert the reference's numpy parameter tree for a ``dense``,
-    ``moe``, ``ssm`` or ``hybrid`` config.  ``dtype`` casts every leaf but
-    the fp32 MoE router, RWKV ``w0`` and ``u`` and Mamba ``a_log`` and
-    ``d_skip`` (None keeps each leaf's own type)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    ``moe``, ``vlm``, ``ssm`` or ``hybrid`` config.  ``dtype`` casts every
+    leaf but the fp32 MoE router, RWKV ``w0`` and ``u`` and Mamba ``a_log``
+    and ``d_skip`` (None keeps each leaf's own type)."""
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
         raise NotImplementedError(f"family {cfg.family!r} is not yet ported")
     if cfg.family == "hybrid":
         stacked, lead, unit = ("superblocks",
@@ -63,9 +64,19 @@ def from_numpy_params(tree: dict, cfg: ModelConfig, device,
         stacked, lead, unit = "blocks", cfg.num_layers, "layers"
     want = {"embed", stacked, "ln_f"} | (set() if cfg.tie_embeddings
                                          else {"lm_head"})
+    if cfg.vision_embed_dim:
+        want.add("vis_proj")
     if set(tree) != want:
         raise ValueError(f"parameter tree has {sorted(tree)}, "
                          f"{cfg.name} needs {sorted(want)}")
+    if cfg.vision_embed_dim:
+        shapes = {k: np.shape(v.get("w")) if isinstance(v, dict) else None
+                  for k, v in tree["vis_proj"].items()}
+        need = {"fc1": (cfg.vision_embed_dim, cfg.d_model),
+                "fc2": (cfg.d_model, cfg.d_model)}
+        if shapes != need:
+            raise ValueError(f"vis_proj has {shapes}, {cfg.name} needs "
+                             f"{need}")
 
     def check_stacked(sub, path):
         if isinstance(sub, (dict, list)):

@@ -459,3 +459,27 @@ def test_grouped_swiglu_row_bits_on_card(c):
     x2[torch.arange(c, device="cuda")[None, :] >= other[:, None]] = 0
     y2 = gmm_ops.grouped_swiglu(x2, *w, other)
     assert torch.equal(y2[1], y[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,e,k,cap", [(8, 384, 8, 8), (512, 384, 8, 512),
+                                       (64, 32, 8, 12)])
+def test_moe_combine_k8_on_card(t, e, k, cap):
+    """The combine at top-8 (Kimi-K2's 384 experts at decode and prefill,
+    and a droppy capacity): two calls give the same bits, and the result
+    equals the CPU's within fp32 rounding (the gathers and adds are the
+    CPU's, in the same order; only fused multiply-adds may differ)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.device import moe_balance as mb
+    g = torch.Generator(device="cuda").manual_seed(t + e + k)
+    logits = torch.randn(t, e, generator=g, device="cuda")
+    idx, gate, probs = mb.route_topk(logits, k)
+    plan = mb.priority_dispatch(idx, gate, probs, num_experts=e,
+                                capacity=cap)
+    y = torch.randn(e, cap, 256, generator=g, device="cuda")
+    got = mb.combine_expert_outputs(y, plan, t, k)
+    assert torch.equal(got, mb.combine_expert_outputs(y, plan, t, k))
+    cpu = mb.combine_expert_outputs(
+        y.cpu(), mb.DispatchPlan(*(a.cpu() for a in plan)), t, k)
+    torch.testing.assert_close(got.cpu(), cpu, rtol=1e-6, atol=1e-6)

@@ -108,9 +108,17 @@ def test_moe_paged_decode_bit_identical_to_contiguous(bridged_moe):
     batch through the contiguous cache and through the pool: the logits
     are equal bit for bit at every step."""
     _, _, model, params = bridged_moe
-    vocab, cap, bs = model.cfg.vocab_size, model.cfg.sliding_window, 8
+    _paged_decode_bit_identical(model, params, (75, 9),
+                                model.cfg.sliding_window)
+
+
+def _paged_decode_bit_identical(model, params, lens, cap, bs=8):
+    """Prompts of ``lens`` tokens prefilled into a contiguous cache of
+    ``cap`` slots and into the pool, then six greedy steps decoded in one
+    batch through each: the logits are equal bit for bit at every step."""
+    vocab = model.cfg.vocab_size
     rng = np.random.default_rng(2)
-    prompts = [rng.integers(0, vocab, (1, n)) for n in (75, 9)]
+    prompts = [rng.integers(0, vocab, (1, n)) for n in lens]
     dense = model.init_cache(2, cap)
     pool = model.init_paged_cache(2, 2 * cap // bs + 1, bs)
     table = torch.arange(1, 2 * cap // bs + 1, dtype=torch.int32).reshape(

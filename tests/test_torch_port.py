@@ -308,6 +308,16 @@ def test_launcher_cluster_chaos_kill_one_on_cpu():
     assert "OK: chaos/autoscale smoke — 12/12 finished" in stdout
 
 
+def test_launcher_cluster_chaos_outwaits_a_slow_heartbeat():
+    """Steps in which no live engine has work do not spend the step budget:
+    the killed engine's requests wait out a heartbeat timeout far longer
+    than 200,000 idle steps take, then replay and finish."""
+    stdout = _cluster_run("--requests", "12", "--chaos", "kill-one",
+                          "--heartbeat-timeout", "8")
+    assert "chaos: crashes=1" in stdout
+    assert "OK: chaos/autoscale smoke — 12/12 finished" in stdout
+
+
 def test_launcher_cluster_autoscale_on_cpu():
     stdout = _cluster_run("--autoscale")
     assert "autoscale: ups=" in stdout

@@ -26,8 +26,9 @@ def _prompt(vocab, n=11, seed=0):
     return np.random.default_rng(seed).integers(0, vocab, (1, n))
 
 
-def _prefill_then_decode(arch, flash, n, s_max):
-    jmodel, jp, tmodel, tp = models(seed=1, arch=arch, use_flash=flash)
+def _prefill_then_decode(arch, flash, n, s_max, **over):
+    jmodel, jp, tmodel, tp = models(seed=1, arch=arch, use_flash=flash,
+                                    **over)
     toks = _prompt(jmodel.cfg.vocab_size, n)
     jlog, jc = _jit(jmodel.prefill, 2)(jp, {"tokens": jnp.asarray(toks)},
                                        s_max)
@@ -59,10 +60,11 @@ def test_moe_prefill_then_decode(flash):
     _prefill_then_decode(MOE, flash, 70, MOE_S_MAX)
 
 
-def _paged_prefill_insert_then_decode(arch, flash, lens, s_max):
+def _paged_prefill_insert_then_decode(arch, flash, lens, s_max, **over):
     """Whole-prompt prefill scattered into the pool, then paged decode at
     two depths in one batch."""
-    jmodel, jp, tmodel, tp = models(seed=2, arch=arch, use_flash=flash)
+    jmodel, jp, tmodel, tp = models(seed=2, arch=arch, use_flash=flash,
+                                    **over)
     vocab = jmodel.cfg.vocab_size
     window = jmodel.cfg.sliding_window
     per = (s_max if window is None else min(s_max, window)) // BS
@@ -112,8 +114,8 @@ def test_moe_paged_prefill_insert_then_decode(flash):
     _paged_prefill_insert_then_decode(MOE, flash, (70, 5), MOE_S_MAX)
 
 
-def _prefill_chunk_paged(arch, n, bounds, s_max):
-    jmodel, jp, tmodel, tp = models(seed=5, arch=arch)
+def _prefill_chunk_paged(arch, n, bounds, s_max, **over):
+    jmodel, jp, tmodel, tp = models(seed=5, arch=arch, **over)
     toks = _prompt(jmodel.cfg.vocab_size, n, seed=6)
     nb = s_max // BS + 1
     jpool = jmodel.init_paged_cache(1, nb, BS)
