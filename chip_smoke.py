@@ -179,6 +179,24 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    kimi-k2-1t-a32b, 1 of its 61 layers (384 experts, top-8; s_max 1024,
    prompts of 64-512 tokens), then the grouped-SwiGLU rows at its shapes.
 
+10. training (``phase_train``): (a) the launcher (``repro_torch.launch.
+   train``, ``TRAIN_ARGS``) trains qwen2-1.5b at full width and depth
+   (random bf16 weights from --seed, fp32 moments, 10 steps of 8 x 512
+   tokens in 2 microbatches, remat): the mean of the last three losses
+   below the first, every grad norm finite; step ms, tokens/s and peak GB
+   printed; (b) no kernel launched during it (none has a backward pass);
+   (d) its trained weights served through the paged engine with flash on,
+   4 requests (flash once a layer a call), then paged == contiguous; (c)
+   the checkpoint round trip at full width, 2 of 28 layers, after one
+   step: {params, opt} saved and restored, every leaf ``torch.equal``
+   (bf16 included), then two ``TrainSupervisor`` runs under
+   ``torch.use_deterministic_algorithms`` (``CUBLAS_WORKSPACE_CONFIG``
+   set before the first CUDA call), one with a ``SimulatedFailure``: the
+   same bits at the end; in a temporary directory, removed after; (e)
+   mixtral-8x22b at full width, 1 of 56 layers, 2 steps with
+   capacity-limited dispatch: the loss finite, ``moe_aux`` reported, no
+   kernel launched (grouped SwiGLU included).
+
 Every kernel launch of a path is counted by its wrapper, with the counts
 set to 0 just before the path and read just after, and held per engine
 call: each prefill and decode call launches a kernel once for every layer
@@ -191,10 +209,12 @@ calls launched.
 
 Two lines before the last is the JSON record of the kernels, of the
 speculative phases (``spec``), of the cluster phases (``cluster``), of the
-image prefix (``vlm``) and of main paths 5-9 (``decoders``);
+image prefix (``vlm``), of main paths 5-9 (``decoders``) and of training
+(``train``);
 flash attention's rows at qwen2-1.5b's heads count the cluster runs'
 launches too (the image-prefix runs are added to no row); every row lists
-its kernel's launches on each path in ``launches_by_path``.  Then the
+its kernel's launches on each path in ``launches_by_path`` (the trained
+weights' serving run under its own name).  Then the
 card's name and power limit; the last is ``{"ok": true, "device":
 {...}}``.
 """
@@ -203,11 +223,14 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -219,6 +242,8 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.checkpoint import (CheckpointManager,  # noqa: E402
+                                    restore_checkpoint, save_checkpoint)
 from repro_torch.cluster import (ClusterRouter, ClusterTelemetry,  # noqa: E402
                                  EngineReplica, StealPolicy)
 from repro_torch.configs import get_config  # noqa: E402
@@ -239,12 +264,20 @@ from repro_torch.kernels.prefix_scan.ref import (  # noqa: E402
 from repro_torch.kernels.wkv6 import build as wkv_build  # noqa: E402
 from repro_torch.kernels.wkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.wkv6.ref import wkv6_plain  # noqa: E402
+from repro_torch.data import DataPipeline, SyntheticCorpus  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.attention import PagedKVCache  # noqa: E402
 from repro_torch.models.transformer import _layer  # noqa: E402
+from repro_torch.optim import adamw_init  # noqa: E402
+from repro_torch.runtime import (SimulatedFailure,  # noqa: E402
+                                 TrainSupervisor)
 from repro_torch.serving import ServingEngine, Speculator  # noqa: E402
 from repro_torch.serving import speculative  # noqa: E402
+from repro_torch.train import make_train_step  # noqa: E402
+from repro_torch.tree import (tree_leaves, tree_leaves_with_path,  # noqa: E402
+                              tree_map)
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and FLOP/s
 #: by input type (bf16 on the tensor cores, fp32 outside them)
@@ -337,6 +370,16 @@ DECODERS = {"qwen3-8b": (None, 2048, 16, 1024, 32),
 VLM_TEXT = 256
 VLM_STEPS = 8
 PLAIN_EXPERTS = 32
+#: phase 10, training: the launcher's run of qwen2-1.5b at full width and
+#: depth; the checkpoint round trip's depth (2 of 28 layers: 0.65 GB of
+#: bf16 weights and 2.6 GB of fp32 moments) and its supervisor runs' batch,
+#: sequence, steps, checkpoint period and failing step; Mixtral-8x22B's
+#: depth (1 of 56 layers: 5.8 GB of bf16 weights), steps and lr
+TRAIN_ARGS = ["--arch", "qwen2-1.5b", "--steps", "10", "--global-batch",
+              "8", "--seq-len", "512", "--microbatches", "2"]
+CKPT_LAYERS = 2
+SUP_BATCH, SUP_SEQ, SUP_STEPS, SUP_EVERY, SUP_FAIL = 4, 256, 4, 2, 3
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_TRAIN_LR = 1, 2, 1e-4
 
 
 def _zero_counts() -> None:
@@ -1994,6 +2037,197 @@ def phase_decoder(arch, rng, seed) -> tuple:
     return model, params, prompts, stats
 
 
+def _no_launches(what: str) -> dict:
+    """Every kernel's launch count since the last ``_zero_counts``, which
+    must be 0: no kernel has a backward pass, so training runs none."""
+    launches = _kernel_launches()
+    if any(launches.values()):
+        raise AssertionError(f"{what}: kernels launched {launches}")
+    return launches
+
+
+def phase_train(seed) -> tuple:
+    """Phase 10 (a, b): the launcher trains qwen2-1.5b at full width and
+    depth (``TRAIN_ARGS``); the mean of the last three losses must be below
+    the first, every grad norm finite, and no kernel launched.  Returns
+    (stats, the model and trained params for (d))."""
+    args = train_launcher.parse_args(TRAIN_ARGS + ["--seed", str(seed)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    run = train_launcher.train(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _no_launches("training")
+    hist = run["history"]
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    if not all(math.isfinite(g) for g in gnorms + losses):
+        raise AssertionError(f"non-finite loss or grad norm: {losses}, "
+                             f"{gnorms}")
+    if not statistics.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    step_ms = [h["seconds"] * 1e3 for h in hist]
+    tokens = args.global_batch * args.seq_len
+    warm_ms = statistics.median(step_ms[1:])
+    stats = dict(arch=run["model"].cfg.name,
+                 layers=run["model"].cfg.num_layers,
+                 steps=len(hist), global_batch=args.global_batch,
+                 seq_len=args.seq_len, microbatches=args.microbatches,
+                 losses=losses, grad_norms=gnorms,
+                 lrs=[h["lr"] for h in hist], step_ms=step_ms,
+                 first_step_ms=step_ms[0], step_ms_median=warm_ms,
+                 tokens_per_s=tokens / warm_ms * 1e3,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 wall_s=wall, launches=launches)
+    print("train: " + json.dumps(stats))
+    model, params = run["model"], run["params"]
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats, model, params
+
+
+def phase_train_serve(model, params, rng) -> dict:
+    """Phase 10 (d): the trained weights served through the paged engine
+    with flash on (4 requests, flash once a layer a call), then paged ==
+    contiguous."""
+    cfg = model.cfg.replace(use_flash=True, moe_dropless=True)
+    serve = build_model(cfg, "cuda")
+    prompts = _prompts(rng, 4, cfg.vocab_size)
+    n = cfg.num_layers
+    stats = phase_main_path(serve, params, prompts, s_max=2048, max_new=16,
+                            kv_mode="paged",
+                            kernels={"flash_attention": (n, n)})
+    phase_paged_equals_contiguous(serve, params, prompts, 2048)
+    return stats
+
+
+def _same_trees(a, b, what: str) -> None:
+    for (k, x), y in zip(tree_leaves_with_path(a), tree_leaves(b)):
+        if x.dtype != y.dtype or x.device != y.device \
+                or not torch.equal(x, y):
+            raise AssertionError(f"{what}: leaf {k} differs")
+
+
+def phase_checkpoint(seed) -> dict:
+    """Phase 10 (c): qwen2-1.5b at full width, ``CKPT_LAYERS`` layers,
+    after one train step: its {params, opt} saved and restored, every leaf
+    ``torch.equal`` (bf16 included); then ``TrainSupervisor`` runs of
+    ``SUP_STEPS`` steps under ``torch.use_deterministic_algorithms``, one
+    with a ``SimulatedFailure`` at step ``SUP_FAIL``: both end with the
+    same bits.  The checkpoints live in a temporary directory, removed
+    after."""
+    cfg = get_config("qwen2-1.5b").replace(num_layers=CKPT_LAYERS,
+                                           use_flash=False)
+    model = build_model(cfg, "cuda")
+    params = model.init(seed)
+    opt = adamw_init(params)
+    step_fn = make_train_step(model)
+    pipe = DataPipeline(SyntheticCorpus(cfg.vocab_size, seed=seed),
+                        global_batch=SUP_BATCH, seq_len=SUP_SEQ)
+
+    def batch_at(i):
+        pipe.state.step = i
+        return {k: torch.from_numpy(v).to("cuda")
+                for k, v in pipe.next_batch().items()}
+
+    _zero_counts()
+    params, opt, _ = step_fn(params, opt, batch_at(0), 1e-3)
+    state = {"params": params, "opt": opt}
+    stats = {"layers": CKPT_LAYERS}
+    with tempfile.TemporaryDirectory() as tmp:
+        stats["disk_free_gb"] = shutil.disk_usage(tmp).free / 1e9
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(tmp, 1, state)
+        stats["save_s"] = time.perf_counter() - t0
+        stats["npz_gb"] = os.path.getsize(
+            os.path.join(path, "state.npz")) / 1e9
+        t0 = time.perf_counter()
+        restored, manifest = restore_checkpoint(tmp, state)
+        torch.cuda.synchronize()
+        stats["restore_s"] = time.perf_counter() - t0
+        if manifest["step"] != 1:
+            raise AssertionError(f"manifest {manifest}")
+        _same_trees(state, restored, "restored checkpoint")
+        del restored
+        shutil.rmtree(path)
+        runs = {}
+        torch.use_deterministic_algorithms(True)
+        try:
+            for tag, inject in (("clean", False), ("faulty", True)):
+                start = {"params": tree_map(torch.clone, params),
+                         "opt": tree_map(torch.clone, opt)}
+                tripped = []
+
+                def step(s, i, inject=inject, tripped=tripped):
+                    if inject and i == SUP_FAIL and not tripped:
+                        tripped.append(i)
+                        raise SimulatedFailure("injected")
+                    p, o, _ = step_fn(s["params"], s["opt"], batch_at(i),
+                                      1e-3)
+                    return {"params": p, "opt": o}
+
+                mgr = CheckpointManager(os.path.join(tmp, tag), keep=1)
+                sup = TrainSupervisor(mgr, step, start, ckpt_every=SUP_EVERY)
+                t0 = time.perf_counter()
+                final, end = sup.run(start, SUP_STEPS)
+                torch.cuda.synchronize()
+                runs[tag] = final
+                stats[f"{tag}_s"] = time.perf_counter() - t0
+                stats[f"{tag}_restarts"] = sup.restarts
+                if end != SUP_STEPS or sup.restarts != int(inject):
+                    raise AssertionError(f"{tag}: ended at {end} after "
+                                         f"{sup.restarts} restarts")
+                del start, final
+                shutil.rmtree(os.path.join(tmp, tag))
+        finally:
+            torch.use_deterministic_algorithms(False)
+    _same_trees(runs["clean"], runs["faulty"], "recovered run")
+    stats["launches"] = _no_launches("checkpoint phase")
+    print("checkpoint: " + json.dumps(stats))
+    return stats
+
+
+def phase_train_moe(seed) -> dict:
+    """Phase 10 (e): mixtral-8x22b at full width, ``MOE_TRAIN_LAYERS``
+    layer(s), ``MOE_TRAIN_STEPS`` steps with capacity-limited dispatch (as
+    the launcher sets it): the loss finite, ``moe_aux`` among the metrics,
+    no kernel launched (grouped SwiGLU included)."""
+    cfg = get_config("mixtral-8x22b").replace(
+        num_layers=MOE_TRAIN_LAYERS, moe_dropless=False, use_flash=False)
+    model = build_model(cfg, "cuda")
+    params = model.init(seed)
+    opt = adamw_init(params)
+    step_fn = make_train_step(model)
+    pipe = DataPipeline(SyntheticCorpus(cfg.vocab_size, seed=seed),
+                        global_batch=8, seq_len=512)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    metrics, step_ms = [], []
+    for _ in range(MOE_TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).to("cuda")
+                 for k, v in pipe.next_batch().items()}
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch, MOE_TRAIN_LR)
+        metrics.append({k: float(v) for k, v in m.items()})
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = _no_launches("MoE training")
+    if not all(math.isfinite(m["loss"]) and "moe_aux" in m
+               for m in metrics):
+        raise AssertionError(f"MoE training metrics: {metrics}")
+    stats = dict(arch=cfg.name, layers=cfg.num_layers,
+                 params=sum(x.numel() for x in tree_leaves(params)),
+                 metrics=metrics, step_ms=step_ms,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 launches=launches)
+    print("train moe: " + json.dumps(stats))
+    return stats
+
+
 def _init(cfg, seed):
     model = build_model(cfg, "cuda")
     t0 = time.perf_counter()
@@ -2014,6 +2248,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    # cuBLAS's deterministic workspace (read when its first handle is made)
+    # for phase 10's bit-exact recovery under deterministic algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     smi = phase_device()
     phase_build()
     flash_rows = phase_kernels(args.seed)
@@ -2192,31 +2429,45 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # phase 10: training, then the trained weights served
+    train, model, params = phase_train(args.seed)
+    train["served"] = phase_train_serve(model, params, rng)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    train["checkpoint"] = phase_checkpoint(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train["moe"] = phase_train_moe(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # each row carries its kernel's launches on the path it was sized for
     # (the fp32 and synthetic-mask rows: the path whose heads they use);
     # the cluster runs serve qwen2-1.5b, so their launches are added into
-    # the qwen rows' count; the image-prefix runs are listed under their
-    # own names only
+    # the qwen rows' count; the image-prefix runs and the trained weights'
+    # serving run are listed under their own names only
     by_path = {p["arch"]: p["launches"]
                for p in (qwen, mixtral, rwkv, jamba, *decoders.values(),
                          scan_path)}
     cluster_runs = {cluster[k]["path"]: cluster[k]["launches"]
                     for k in ("chunked", "whole")}
-    vlm_runs = {f"internvl2-26b image prefix {k}": v["launches"]
+    own_runs = {f"internvl2-26b image prefix {k}": v["launches"]
                 for k, v in vlm.items()}
+    own_runs["qwen2-1.5b trained, served"] = train["served"]["launches"]
     rows = flash_rows + gmm_rows + wkv_rows + scan_rows
     for row in rows:
         row["launches"] = by_path[row["path"]][row["name"]]
         row["launches_by_path"] = {
             p: n[row["name"]]
-            for p, n in {**by_path, **cluster_runs, **vlm_runs}.items()
+            for p, n in {**by_path, **cluster_runs, **own_runs}.items()
             if n[row["name"]]}
         if row["path"] == "qwen2-1.5b":
             row["launches"] += sum(n[row["name"]]
                                    for n in cluster_runs.values())
     print(json.dumps({"kernels": rows, "spec": spec, "cluster": cluster,
                       "hybrid_handoff": handoff, "vlm": vlm,
-                      "decoders": decoders}))
+                      "decoders": decoders, "train": train}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

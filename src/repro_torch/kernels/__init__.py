@@ -12,4 +12,23 @@ The four kernels, one for each TPU kernel of ``repro``:
 
 Import a kernel from its package (``from repro_torch.kernels.wkv6 import
 wkv6``): binding the wrappers here would shadow the packages of the same
-name."""
+name.
+
+No kernel has a backward pass: on a CUDA tensor each wrapper refuses
+inputs that require grad (``refuse_autograd``) rather than return a result
+that silently cuts the gradient.  Training takes the plain path
+(``use_flash=False``), as the reference's does."""
+import torch
+
+__all__ = ["refuse_autograd"]
+
+
+def refuse_autograd(kernel: str, *tensors) -> None:
+    """Raise where a backward pass could follow a kernel's launch: grad
+    enabled and an input (None skipped) requiring grad."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward pass, and an input "
+            f"requires grad; call it under torch.no_grad(), or train on "
+            f"the plain path (use_flash=False)")

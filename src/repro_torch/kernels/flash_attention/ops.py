@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import refuse_autograd
 from .ref import flash_attention_plain
 
 __all__ = ["flash_attention", "kernel_route", "decode_plan", "DecodePlan",
@@ -125,6 +126,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
+    refuse_autograd("flash_attention", q, k, v)
     _check_cuda(q, k, v, kv_valid)
     from .build import LIBRARY
     lib = LIBRARY.load()

@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from .. import refuse_autograd
 from .ref import grouped_swiglu_plain
 
 __all__ = ["grouped_swiglu"]
@@ -79,6 +80,7 @@ def grouped_swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"grouped_swiglu runs on cuda or cpu, not "
                          f"{x.device}")
+    refuse_autograd("grouped_swiglu", x, w_gate, w_up, w_down)
     _check_cuda(x, w_gate, w_up, w_down, load)
     from .build import LIBRARY
     lib = LIBRARY.load()

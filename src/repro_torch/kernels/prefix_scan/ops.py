@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import refuse_autograd
 from .ref import prefix_scan_plain
 
 __all__ = ["prefix_scan", "ScanPlan", "scan_plan"]
@@ -52,6 +53,7 @@ def prefix_scan(x: torch.Tensor) -> torch.Tensor:
         return prefix_scan_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"prefix_scan runs on cuda or cpu, not {x.device}")
+    refuse_autograd("prefix_scan", x)
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"prefix_scan kernel takes float32, bfloat16 or "
                         f"int32, not {x.dtype}")

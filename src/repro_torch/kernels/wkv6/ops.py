@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import refuse_autograd
 from .ref import CHUNK, wkv6_plain
 
 __all__ = ["wkv6", "HEAD_SIZES", "WkvPlan", "wkv6_plan"]
@@ -91,6 +92,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         return wkv6_plain(r, k, v, w, u, s0)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6 runs on cuda or cpu, not {r.device}")
+    refuse_autograd("wkv6", r, k, v, w, u, s0)
     _check_cuda(r, k, v, w, u, s0)
     from .build import LIBRARY
     lib = LIBRARY.load()

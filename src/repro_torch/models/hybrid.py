@@ -2,8 +2,7 @@
 attention layer (at ``attn_index``) and Mamba elsewhere; every
 ``moe_layer_period``-th layer's FFN is MoE, the rest dense MLP.
 
-The PyTorch counterpart of ``repro/models/hybrid.py`` (its serving half:
-the training forward ``hybrid_forward`` is not ported).  Parameters keep the
+The PyTorch counterpart of ``repro/models/hybrid.py``.  Parameters keep the
 reference's superblock-stacked tree: ``superblocks/layers/<i>/...`` is a
 list of the ``attn_every`` layers, each leaf ``[n_sb, ...]``; the
 reference's ``lax.scan`` over superblocks is a Python loop that takes
@@ -16,6 +15,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import (KVCache, PagedKVCache, attention_decode,
@@ -25,10 +25,12 @@ from .layers import (dtype_of, embed, init_embedding, init_linear, init_mlp,
                      init_rms_norm, linear, mlp, rms_norm)
 from .moe import init_moe, moe_fwd
 from .ssm import MambaState, init_mamba, mamba_decode, mamba_fwd
-from .transformer import _layer, _stack_into, lm_insert_prefill_paged
+from .transformer import (LMOutputs, _layer, _layers, _remat, _stack_into,
+                          lm_insert_prefill_paged)
 
-__all__ = ["init_hybrid_lm", "hybrid_prefill", "hybrid_decode_step",
-           "init_hybrid_cache", "HybridCache", "hybrid_insert_prefill",
+__all__ = ["init_hybrid_lm", "hybrid_forward", "hybrid_prefill",
+           "hybrid_decode_step", "init_hybrid_cache", "HybridCache",
+           "hybrid_insert_prefill",
            "HybridPagedCache", "init_hybrid_paged_cache",
            "hybrid_decode_step_paged", "hybrid_insert_prefill_paged"]
 
@@ -103,19 +105,22 @@ def init_hybrid_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
-def _ffn(layer: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The layer's feed-forward and residual: MoE (grouped-SwiGLU kernel
-    under ``use_flash``, as in the reference) or the dense MLP."""
+def _ffn(layer: dict, h: torch.Tensor, cfg: ModelConfig):
+    """The layer's feed-forward and residual, and its MoE aux loss (None
+    for a dense layer): MoE (grouped-SwiGLU kernel under ``use_flash``, as
+    in the reference) or the dense MLP."""
     z = rms_norm(layer["ln2"], h, cfg.norm_eps)
     if "moe" in layer:
-        return h + moe_fwd(layer["moe"], z, cfg, use_kernel=cfg.use_flash)[0]
-    return h + mlp(layer["mlp"], z)
+        y, stats = moe_fwd(layer["moe"], z, cfg, use_kernel=cfg.use_flash)
+        return h + y, stats.aux_loss
+    return h + mlp(layer["mlp"], z), None
 
 
 def _superblock_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
     """One superblock over the full sequence: (output, the attention
-    layer's (k, v), the Mamba layers' states stacked [n_mamba, ...])."""
-    kv = None
+    layer's (k, v), the Mamba layers' states stacked [n_mamba, ...], the
+    sum of its MoE layers' aux losses)."""
+    kv = aux = None
     convs, hs = [], []
     for layer in p["layers"]:
         z = rms_norm(layer["ln1"], x, cfg.norm_eps)
@@ -126,8 +131,29 @@ def _superblock_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
             out, st = mamba_fwd(layer["mamba"], z, cfg)
             convs.append(st.conv)
             hs.append(st.h)
-        x = _ffn(layer, x + out, cfg)
-    return x, kv, MambaState(torch.stack(convs), torch.stack(hs))
+        x, a = _ffn(layer, x + out, cfg)
+        if a is not None:     # the reference adds from fp32 0: 0 + a == a
+            aux = a if aux is None else aux + a
+    if aux is None:
+        aux = torch.zeros((), device=x.device)
+    return x, kv, MambaState(torch.stack(convs), torch.stack(hs)), aux
+
+
+def hybrid_forward(params: dict, batch: dict, cfg: ModelConfig) -> LMOutputs:
+    """Training forward: logits at every position and the superblocks' mean
+    MoE aux loss."""
+    x = embed(params["embed"], batch["tokens"], cfg.onehot_embed)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    remat = _remat(cfg)
+    auxs = []
+    for p in _layers(params["superblocks"], _n_superblocks(cfg)):
+        x, _, _, aux = (checkpoint(_superblock_fwd, p, x, cfg, positions,
+                                   use_reentrant=False)
+                        if remat else _superblock_fwd(p, x, cfg, positions))
+        auxs.append(aux)
+    x = rms_norm(params["ln_f"], x, cfg.norm_eps)
+    return LMOutputs(linear(params["lm_head"], x),
+                     moe_aux=torch.stack(auxs).mean())
 
 
 def _mamba_states(cfg: ModelConfig, batch: int, device):
@@ -159,8 +185,8 @@ def hybrid_prefill(params: dict, batch: dict, cfg: ModelConfig,
     cap = cache.kv.k.shape[2]
     w = min(s, cap)
     for i in range(_n_superblocks(cfg)):
-        x, (k, v), st = _superblock_fwd(_layer(params["superblocks"], i), x,
-                                        cfg, positions)
+        x, (k, v), st, _ = _superblock_fwd(_layer(params["superblocks"], i),
+                                           x, cfg, positions)
         # the prompt K/V tail, ring-aligned: position p at slot p % cap
         tail_k, tail_v = k[:, s - w:s], v[:, s - w:s]
         if w == cap and s % cap:
@@ -190,7 +216,7 @@ def _superblock_decode(p: dict, x: torch.Tensor, attend: Callable,
                                  MambaState(conv[mi], h[mi]))
             conv[mi], h[mi] = st.conv, st.h
             mi += 1
-        x = _ffn(layer, x + y, cfg)
+        x, _ = _ffn(layer, x + y, cfg)
     return x
 
 

@@ -21,7 +21,7 @@ from ..configs.base import ModelConfig
 
 __all__ = ["dtype_of", "init_linear", "linear", "init_rms_norm", "rms_norm",
            "init_group_norm", "group_norm", "init_embedding", "embed",
-           "rope_freqs", "apply_rope", "init_mlp", "mlp"]
+           "unembed", "rope_freqs", "apply_rope", "init_mlp", "mlp"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -94,6 +94,10 @@ def embed(p: dict, tokens: torch.Tensor,
     if onehot:
         raise NotImplementedError("the one-hot embedding is not ported")
     return p["table"][tokens]
+
+
+def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return x @ p["table"].T
 
 
 # -- rotary ------------------------------------------------------------------

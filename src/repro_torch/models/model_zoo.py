@@ -6,7 +6,9 @@ the engine serves a VLM text-only, and ``prefill`` takes a batch's
 states per slot; no chunked prefill, prefix caching or verify path).
 
 The PyTorch counterpart of ``repro/models/model_zoo.py``.  A ``Model`` is
-bound to a device; ``init(seed)`` draws its parameters there.
+bound to a device; ``init(seed)`` draws its parameters there.  ``forward``
+is the training forward and ``loss`` (``lm_loss``) the next-token cross
+entropy plus the MoE aux loss.
 """
 from __future__ import annotations
 
@@ -14,12 +16,14 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import hybrid, rwkv_lm, transformer
+from .transformer import LMOutputs
 
-__all__ = ["Model", "build_model"]
+__all__ = ["Model", "build_model", "lm_loss"]
 
 
 @dataclass(frozen=True)
@@ -27,6 +31,7 @@ class Model:
     cfg: ModelConfig
     device: torch.device
     init: Callable[[int], dict]                # (seed) -> params
+    forward: Callable[..., LMOutputs]          # (params, batch) -> outputs
     prefill: Callable[..., tuple]              # (params, batch, s_max)
     decode_step: Callable[..., tuple]          # (params, token, cache, pos)
     init_cache: Callable[..., Any]             # (batch, s_max) -> cache
@@ -64,6 +69,10 @@ class Model:
         decode step."""
         return self.init_cache is not None
 
+    def loss(self, params: dict, batch: dict
+             ) -> tuple[torch.Tensor, dict]:
+        return lm_loss(self, params, batch)
+
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
     """``device`` None means CUDA (raises without a CUDA device); pass
@@ -75,6 +84,7 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
             device=dev,
             init=lambda seed: rwkv_lm.init_rwkv_lm(
                 torch.Generator(device=dev).manual_seed(seed), cfg),
+            forward=lambda p, b: rwkv_lm.rwkv_forward(p, b, cfg),
             prefill=lambda p, b, s_max=None: rwkv_lm.rwkv_prefill(
                 p, b, cfg, s_max),
             decode_step=lambda p, tok, cache, pos: rwkv_lm.rwkv_decode_step(
@@ -88,6 +98,7 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
             device=dev,
             init=lambda seed: hybrid.init_hybrid_lm(
                 torch.Generator(device=dev).manual_seed(seed), cfg),
+            forward=lambda p, b: hybrid.hybrid_forward(p, b, cfg),
             prefill=lambda p, b, s_max=None: hybrid.hybrid_prefill(
                 p, b, cfg, s_max),
             decode_step=lambda p, tok, cache, pos: hybrid.hybrid_decode_step(
@@ -115,6 +126,7 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
         device=dev,
         init=lambda seed: transformer.init_lm(
             torch.Generator(device=dev).manual_seed(seed), cfg),
+        forward=lambda p, b: transformer.lm_forward(p, b, cfg),
         prefill=lambda p, b, s_max=None: transformer.lm_prefill(
             p, b, cfg, s_max),
         decode_step=lambda p, tok, cache, pos: transformer.lm_decode_step(
@@ -133,3 +145,58 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
         verify_paged=lambda p, toks, cache, table, pos:
             transformer.lm_verify_paged(p, toks, cache, table, pos, cfg),
     )
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor,
+          vocab_chunk: int = 0) -> torch.Tensor:
+    """Mean next-token cross entropy in fp32 (numerically safe at V>150k).
+
+    ``vocab_chunk > 0`` computes the logsumexp blockwise over the vocab dim
+    (running max/denominator — the flash-softmax trick applied to the loss),
+    so the fp32 logits copy never materializes at full [.., V]."""
+    labels = labels.long()[..., None]
+    if not vocab_chunk:
+        logits = logits.float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels).squeeze(-1)
+        return (logz - gold).mean()
+    v = logits.shape[-1]
+    pad = (-v) % vocab_chunk
+    if pad:  # pad vocab with -inf-like logits (no mass)
+        logits = F.pad(logits, (0, pad), value=-1e30)
+        v += pad
+    lead = logits.shape[:-1]
+    m = torch.full(lead, float("-inf"), dtype=torch.float32,
+                   device=logits.device)
+    l = torch.zeros(lead, dtype=torch.float32, device=logits.device)
+    for ch in logits.split(vocab_chunk, dim=-1):
+        ch = ch.float()
+        m2 = torch.maximum(m, ch.amax(-1))
+        l = l * torch.exp(m - m2) + torch.exp(ch - m2[..., None]).sum(-1)
+        m = m2
+    logz = m + torch.log(l)
+    gold = torch.gather(logits, -1, labels).squeeze(-1).float()
+    return (logz - gold).mean()
+
+
+def lm_loss(model: Model, params: dict, batch: dict
+            ) -> tuple[torch.Tensor, dict]:
+    """Cross-entropy on next-token labels + MoE auxiliary losses.
+
+    ``batch["labels"]`` aligns with the *text* tokens; for VLM the image
+    prefix positions are excluded automatically."""
+    out = model.forward(params, batch)
+    logits = out.logits
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:     # VLM: image prefix present
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
+    loss = _xent(logits[:, :-1], labels[:, 1:], model.cfg.loss_vocab_chunk)
+    metrics = {"xent": loss}
+    if out.moe_aux is not None:
+        aux = out.moe_aux * model.cfg.router_aux_coef
+        loss = loss + aux
+        metrics["moe_aux"] = aux
+        if out.moe_dropped is not None:
+            metrics["moe_dropped_mass"] = out.moe_dropped.float().mean()
+    metrics["loss"] = loss
+    return loss, metrics

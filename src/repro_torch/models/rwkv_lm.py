@@ -1,6 +1,5 @@
 """RWKV-6 language model stack (attention-free): the PyTorch counterpart of
-``repro/models/rwkv_lm.py`` (``rwkv_forward``, the training forward, is
-not yet ported).
+``repro/models/rwkv_lm.py``.
 
 Decode state is O(1) in sequence length: per layer a [B, H, N, N] wkv state
 plus two token-shift vectors.  Parameters keep the reference's
@@ -10,17 +9,21 @@ place.  Norms are RMS, as in the reference.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .layers import (dtype_of, embed, init_embedding, init_linear,
                      init_rms_norm, linear, rms_norm)
 from .ssm import (RWKVState, init_rwkv_channel_mix, init_rwkv_time_mix,
                   rwkv_channel_mix, rwkv_time_mix, rwkv_time_mix_decode)
-from .transformer import _layer, _stacked_blocks
+from .transformer import (LMOutputs, _layer, _layers, _remat,
+                          _stacked_blocks)
 
-__all__ = ["init_rwkv_lm", "rwkv_prefill", "rwkv_decode_step",
-           "init_rwkv_cache"]
+__all__ = ["init_rwkv_lm", "rwkv_forward", "rwkv_prefill",
+           "rwkv_decode_step", "init_rwkv_cache"]
 
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -44,14 +47,28 @@ def init_rwkv_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def _block_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig,
-               state: RWKVState):
+               state: Optional[RWKVState]):
+    tm_state = None if state is None else (state.tm_shift, state.s)
     y, (tm_shift, s_end) = rwkv_time_mix(
-        p["tm"], rms_norm(p["ln1"], x, cfg.norm_eps), cfg,
-        (state.tm_shift, state.s))
+        p["tm"], rms_norm(p["ln1"], x, cfg.norm_eps), cfg, tm_state)
     h = x + y
+    cm_prev = None if state is None else state.cm_shift
     y2, cm_shift = rwkv_channel_mix(
-        p["cm"], rms_norm(p["ln2"], h, cfg.norm_eps), cfg, state.cm_shift)
+        p["cm"], rms_norm(p["ln2"], h, cfg.norm_eps), cfg, cm_prev)
     return h + y2, RWKVState(tm_shift, cm_shift, s_end)
+
+
+def rwkv_forward(params: dict, batch: dict, cfg: ModelConfig) -> LMOutputs:
+    """Training forward: logits at every position.  No state is passed, so
+    every layer takes the chunked scan, never the WKV-6 kernel (as in the
+    reference)."""
+    x = embed(params["embed"], batch["tokens"], cfg.onehot_embed)
+    remat = _remat(cfg)
+    for p in _layers(params["blocks"], cfg.num_layers):
+        x, _ = (checkpoint(_block_fwd, p, x, cfg, None, use_reentrant=False)
+                if remat else _block_fwd(p, x, cfg, None))
+    x = rms_norm(params["ln_f"], x, cfg.norm_eps)
+    return LMOutputs(linear(params["lm_head"], x))
 
 
 def init_rwkv_cache(cfg: ModelConfig, batch: int, device=None) -> RWKVState:

@@ -254,7 +254,10 @@ def _mamba_scan_chunked(a_t: torch.Tensor, b_t: torch.Tensor,
     chunks run at once, a step at a time (``chunk`` - 1 steps, each over
     every chunk); they only ever multiply decays, so a chunk's cumulative
     decay may underflow to 0 where Δ·A sums below -87 without a division
-    by it."""
+    by it.  Without autograd the steps are written in place (``out=``);
+    where a backward pass can follow, each step is a tensor of its own and
+    the steps are stacked, with the same operations in the same order, so
+    both forms give the same bits."""
     b, t, di, ds = a_t.shape
     c = min(chunk, t)
     pad = (-t) % c
@@ -263,12 +266,23 @@ def _mamba_scan_chunked(a_t: torch.Tensor, b_t: torch.Tensor,
         b_t = F.pad(b_t, (0, 0, 0, 0, 0, pad))
     n = (t + pad) // c
     a = a_t.reshape(b, n, c, di, ds)
-    a_cum = a.clone()
-    b_cum = b_t.reshape(b, n, c, di, ds).clone()
-    for j in range(1, c):
-        torch.addcmul(b_cum[:, :, j], a[:, :, j], b_cum[:, :, j - 1],
-                      out=b_cum[:, :, j])
-        torch.mul(a_cum[:, :, j - 1], a[:, :, j], out=a_cum[:, :, j])
+    b_in = b_t.reshape(b, n, c, di, ds)
+    if torch.is_grad_enabled() and (a.requires_grad or b_in.requires_grad
+                                    or h0.requires_grad):
+        a_steps, b_steps = [a[:, :, 0]], [b_in[:, :, 0]]
+        for j in range(1, c):
+            b_steps.append(torch.addcmul(b_in[:, :, j], a[:, :, j],
+                                         b_steps[-1]))
+            a_steps.append(torch.mul(a_steps[-1], a[:, :, j]))
+        a_cum = torch.stack(a_steps, 2)
+        b_cum = torch.stack(b_steps, 2)
+    else:
+        a_cum = a.clone()
+        b_cum = b_in.clone()
+        for j in range(1, c):
+            torch.addcmul(b_cum[:, :, j], a[:, :, j], b_cum[:, :, j - 1],
+                          out=b_cum[:, :, j])
+            torch.mul(a_cum[:, :, j - 1], a[:, :, j], out=a_cum[:, :, j])
     # the carry: h entering each chunk, then h_t = b_cum + a_cum h_in
     h, h_in = h0, []
     for i in range(n):

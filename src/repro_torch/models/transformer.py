@@ -6,14 +6,18 @@ the reference's layer-stacked ``[L, ...]`` leaves; the reference's
 ``lax.scan`` over layers is a Python loop that takes layer ``l``'s views.
 KV caches are written in place (see ``attention``).  The VLM trunk is the
 dense one with a projector (``vis_proj``) whose outputs prefix the prompt's
-token embeddings when a batch carries ``image_embeds``.
+token embeddings when a batch carries ``image_embeds``.  ``lm_forward`` is
+the training forward: all-position logits, with ``cfg.remat`` recomputing
+each layer in the backward pass (``torch.utils.checkpoint``) as the
+reference's ``jax.checkpoint`` does.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import (KVCache, PagedKVCache, attention_decode,
@@ -23,16 +27,37 @@ from .attention import (KVCache, PagedKVCache, attention_decode,
                         init_kv_cache, init_paged_kv_cache)
 from .layers import (dtype_of, embed, init_embedding, init_linear, init_mlp,
                      init_rms_norm, linear, mlp, rms_norm)
-from .moe import init_moe, moe_fwd
+from .moe import MoEStats, init_moe, moe_fwd
 
-__all__ = ["init_lm", "lm_prefill", "lm_decode_step", "init_lm_cache",
+__all__ = ["init_lm", "lm_forward", "LMOutputs", "lm_prefill", "lm_decode_step", "init_lm_cache",
            "init_lm_paged_cache", "lm_decode_step_paged",
            "lm_prefill_chunk_paged", "lm_verify_paged",
            "lm_insert_prefill_paged"]
 
 
+class LMOutputs(NamedTuple):
+    logits: torch.Tensor
+    moe_load: Optional[torch.Tensor] = None      # [L, E]
+    moe_dropped: Optional[torch.Tensor] = None   # [L]
+    moe_aux: Optional[torch.Tensor] = None       # [] load-balance loss
+
+
 def _is_moe(cfg: ModelConfig) -> bool:
     return cfg.num_experts > 0
+
+
+def _pin(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The reference pins activations to a batch-sharded layout at layer
+    boundaries under a mesh; on one device, as the reference without a
+    mesh, it is the identity."""
+    del cfg
+    return x
+
+
+def _remat(cfg: ModelConfig) -> bool:
+    """Recompute each layer in the backward pass: ``cfg.remat``, when a
+    backward pass can follow."""
+    return cfg.remat and torch.is_grad_enabled()
 
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -47,12 +72,18 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
-def _ffn(p: dict, z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _ffn_stats(p: dict, z: torch.Tensor, cfg: ModelConfig
+               ) -> tuple[torch.Tensor, Optional[MoEStats]]:
     """The block's feed-forward: the MoE layer (grouped-SwiGLU kernel under
-    ``use_flash``, as in the reference) or the dense MLP."""
+    ``use_flash``, as in the reference) with its stats, or the dense MLP
+    (stats None)."""
     if _is_moe(cfg):
-        return moe_fwd(p["moe"], z, cfg, use_kernel=cfg.use_flash)[0]
-    return mlp(p["mlp"], z)
+        return moe_fwd(p["moe"], z, cfg, use_kernel=cfg.use_flash)
+    return mlp(p["mlp"], z), None
+
+
+def _ffn(p: dict, z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return _ffn_stats(p, z, cfg)[0]
 
 
 def _stack_into(stack, tree, i: int, n: int):
@@ -99,6 +130,20 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _layers(tree, n: int) -> list:
+    """Every layer's parameters, each stacked leaf unbound once.  A backward
+    pass then stacks the ``n`` layers' gradients once; indexing a layer at a
+    time (``_layer``) would add a zero-filled gradient of the whole stack
+    for every layer."""
+    if isinstance(tree, dict):
+        per = {k: _layers(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, list):
+        per = [_layers(v, n) for v in tree]
+        return [[p[i] for p in per] for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Random parameters on ``gen.device`` with the reference's tree,
     layouts and distributions (not its numbers: the generators differ)."""
@@ -135,14 +180,19 @@ def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig):
     return x
 
 
-def _block_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig, positions, mask):
-    """One block over the full sequence; returns (output, (k, v))."""
-    attn_out, kv = attention_fwd(p["attn"],
-                                 rms_norm(p["ln1"], x, cfg.norm_eps), cfg,
-                                 positions, mask, use_flash=cfg.use_flash,
-                                 return_kv=True)
+def _block_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig, positions, mask,
+               return_kv: bool = True):
+    """One block over the full sequence; returns (output, (k, v) or None,
+    the MoE layer's stats or None)."""
+    attn_out = attention_fwd(p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps),
+                             cfg, positions, mask, use_flash=cfg.use_flash,
+                             return_kv=return_kv)
+    kv = None
+    if return_kv:
+        attn_out, kv = attn_out
     h = x + attn_out
-    return h + _ffn(p, rms_norm(p["ln2"], h, cfg.norm_eps), cfg), kv
+    y, stats = _ffn_stats(p, rms_norm(p["ln2"], h, cfg.norm_eps), cfg)
+    return _pin(h + y, cfg), kv, stats
 
 
 def _block_decode(p: dict, x: torch.Tensor, cache: KVCache, pos, cfg):
@@ -156,6 +206,27 @@ def _unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return x @ params["embed"]["table"].T
     return linear(params["lm_head"], x)
+
+
+def lm_forward(params: dict, batch: dict, cfg: ModelConfig) -> LMOutputs:
+    """Training forward over the full sequence (after the image prefix, if
+    the batch has one): logits at every position and, for MoE, each
+    layer's expert load [L, E], dropped mass [L] and the mean aux loss."""
+    x = _pin(_embed_inputs(params, batch, cfg), cfg)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    remat = _remat(cfg)
+    stats = []
+    for p in _layers(params["blocks"], cfg.num_layers):
+        args = (p, x, cfg, positions, None, False)
+        x, _, st = (checkpoint(_block_fwd, *args, use_reentrant=False)
+                    if remat else _block_fwd(*args))
+        stats.append(st)
+    x = rms_norm(params["ln_f"], x, cfg.norm_eps)
+    logits = _unembed(params, x, cfg)
+    if _is_moe(cfg):
+        load, dropped, aux = (torch.stack(f) for f in zip(*stats))
+        return LMOutputs(logits, load, dropped, aux.mean())
+    return LMOutputs(logits)
 
 
 def init_lm_cache(cfg: ModelConfig, batch: int, s_max: int,
@@ -178,8 +249,8 @@ def lm_prefill(params: dict, batch: dict, cfg: ModelConfig,
     cap = cache.k.shape[2]
     w = min(s, cap)
     for i in range(cfg.num_layers):
-        x, (k, v) = _block_fwd(_layer(params["blocks"], i), x, cfg,
-                               positions, None)
+        x, (k, v), _ = _block_fwd(_layer(params["blocks"], i), x, cfg,
+                                  positions, None)
         # Place the prompt K/V tail into a cache of capacity s_max;
         # ring-align so that position p sits at slot p % s_max (what decode
         # expects).

@@ -483,3 +483,54 @@ def test_moe_combine_k8_on_card(t, e, k, cap):
     cpu = mb.combine_expert_outputs(
         y.cpu(), mb.DispatchPlan(*(a.cpu() for a in plan)), t, k)
     torch.testing.assert_close(got.cpu(), cpu, rtol=1e-6, atol=1e-6)
+
+
+def _wrapper_call(name):
+    """(the wrapper's launch counter, a call of it on small bf16 CUDA
+    inputs, those inputs)."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+
+    if name == "flash_attention":
+        xs = (rnd(1, 64, 4, 64), rnd(1, 64, 2, 64), rnd(1, 64, 2, 64))
+        return ops.flash_attention, lambda: ops.flash_attention(*xs), xs
+    if name == "grouped_swiglu":
+        xs = (rnd(2, 16, 64), rnd(2, 64, 128), rnd(2, 64, 128),
+              rnd(2, 128, 64))
+        return (gmm_ops.grouped_swiglu,
+                lambda: gmm_ops.grouped_swiglu(*xs), xs)
+    if name == "wkv6":
+        xs = (rnd(1, 16, 2, 64), rnd(1, 16, 2, 64), rnd(1, 16, 2, 64),
+              torch.rand(1, 16, 2, 64, generator=g, device="cuda"),
+              torch.randn(2, 64, generator=g, device="cuda"),
+              torch.zeros(1, 2, 64, 64, device="cuda"))
+        return wkv_ops.wkv6, lambda: wkv_ops.wkv6(*xs), xs
+    xs = (torch.randn(2, 300, generator=g, device="cuda"),)
+    return scan_ops.prefix_scan, lambda: scan_ops.prefix_scan(*xs), xs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash_attention", "grouped_swiglu",
+                                  "wkv6", "prefix_scan"])
+def test_wrapper_refuses_inputs_that_require_grad_on_card(name):
+    """No kernel has a backward pass: on inputs that require grad each
+    wrapper raises before launching (a result without a ``grad_fn`` would
+    cut the gradient silently); under ``torch.no_grad`` it launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    counter, call, xs = _wrapper_call(name)
+    for i in range(len(xs)):
+        xs[i].requires_grad_(True)
+        before = counter.launches
+        with pytest.raises(RuntimeError, match="has no backward pass"):
+            call()
+        assert counter.launches == before
+        with torch.no_grad():
+            out = call()
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        assert not (out[0] if isinstance(out, tuple) else out).requires_grad
+        xs[i].requires_grad_(False)

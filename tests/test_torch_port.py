@@ -30,7 +30,7 @@ SERVE = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
 
 #: modules that must be among those scanned (the MoE slice's, the RWKV
 #: slice's with the last two kernels, speculative decoding's, the
-#: scheduler and live cluster's, and the hybrid's)
+#: scheduler and live cluster's, the hybrid's, and training's)
 REQUIRED = ("repro_torch.serving.speculative",
             "repro_torch.core.scheduler", "repro_torch.analysis.schedlint",
             "repro_torch.core.device.weighted_partition",
@@ -43,7 +43,11 @@ REQUIRED = ("repro_torch.serving.speculative",
             "repro_torch.kernels.moe_gmm.build",
             "repro_torch.configs.rwkv6_3b", "repro_torch.models.ssm",
             "repro_torch.models.rwkv_lm", "repro_torch.configs.jamba_v01_52b",
-            "repro_torch.models.hybrid") + tuple(
+            "repro_torch.models.hybrid", "repro_torch.tree",
+            "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+            "repro_torch.train.step", "repro_torch.checkpoint.ckpt",
+            "repro_torch.data.pipeline", "repro_torch.data.packing",
+            "repro_torch.launch.train") + tuple(
     f"repro_torch.kernels.{k}{m}" for k in ("wkv6", "prefix_scan")
     for m in ("", ".ops", ".ref", ".build"))
 
@@ -112,7 +116,8 @@ def test_copies_are_found():
     names = {str(p.relative_to(PKG)) for p in COPIES}
     assert {"core/strategy.py", "core/task.py", "core/task_storage.py",
             "core/device/request_scheduler.py", "serving/paged_kv.py",
-            "configs/base.py", "configs/jamba_v01_52b.py"} <= names
+            "configs/base.py", "configs/jamba_v01_52b.py",
+            "data/__init__.py", "data/pipeline.py"} <= names
     assert {"core/machine.py", "core/metrics.py", "core/scheduler.py",
             "core/__init__.py", "runtime/elastic.py", "runtime/__init__.py"
             } | {f"apps/{m}.py" for m in APPS} \
