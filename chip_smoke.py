@@ -26,7 +26,9 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      at deepseek-coder-33b's heads (56/8, g = 7) and mistral-large-123b's
      (96/8, g = 12): a 1024-token prefill and a decode over 2048 slots
      (B = 8, mixed kv_valid), and for g = 12 at S = 4, where a kv head's
-     48 query rows take two CTAs (32 + 16 rows);
+     48 query rows take two CTAs (32 + 16 rows); at seamless-m4t-medium's
+     decoder heads (16/16 of 64, g = 1): a decode over phase 11's 256
+     slots (B = 8, mixed kv_valid) in bf16 and fp32;
      then the split route's edges (T not a multiple of the chunk, T under
      one chunk, kv_valid 0, 1 and T in one batch, S = 2..4 causal with a
      q_offset, a window that empties the early chunks, g = 1, 6, 8, fp32);
@@ -197,6 +199,25 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    capacity-limited dispatch: the loss finite, ``moe_aux`` reported, no
    kernel launched (grouped SwiGLU included).
 
+11. the encoder-decoder (``phase_encdec``): seamless-m4t-medium whole (12
+   encoder and 12 decoder layers, random bf16 weights from --seed), which
+   the engine cannot serve (no ``init_cache``, as in the reference), so it
+   runs through ``make_prefill_step`` and ``make_decode_step``: (a) 8
+   sources of 1024 frames (seeded source embeddings), target prompts of
+   16 tokens, prefill at s_max 256, 128 greedy decode steps with flash on:
+   logits finite, flash once a decoder layer in every decode step (the
+   self-attention's split decode at d = 64, g = 1) and never in the
+   prefill (the encoder, the prompt and every cross-attention take the
+   plain route, as in the reference); tokens/s, prefill ms, the median
+   step ms and peak GB printed; (b) the same with flash off on the same
+   weights: the first decode step's logits within ENCDEC_BF16_REL of their
+   largest |logit|, the share of equal tokens printed; (c) an fp32 copy of
+   the weights, flash against plain over 32 steps: identical tokens (a
+   difference passes only as a recorded tie, as in phase 4b); (d) 3
+   ``make_train_step`` steps at full width (4 sources of 512 frames, 128
+   target tokens, bf16 weights, fp32 moments, remat, flash off): the loss
+   finite and falling, no kernel launched; step ms and peak GB printed.
+
 Every kernel launch of a path is counted by its wrapper, with the counts
 set to 0 just before the path and read just after, and held per engine
 call: each prefill and decode call launches a kernel once for every layer
@@ -209,8 +230,8 @@ calls launched.
 
 Two lines before the last is the JSON record of the kernels, of the
 speculative phases (``spec``), of the cluster phases (``cluster``), of the
-image prefix (``vlm``), of main paths 5-9 (``decoders``) and of training
-(``train``);
+image prefix (``vlm``), of main paths 5-9 (``decoders``), of training
+(``train``) and of the encoder-decoder (``encdec``);
 flash attention's rows at qwen2-1.5b's heads count the cluster runs'
 launches too (the image-prefix runs are added to no row); every row lists
 its kernel's launches on each path in ``launches_by_path`` (the trained
@@ -275,7 +296,8 @@ from repro_torch.runtime import (SimulatedFailure,  # noqa: E402
                                  TrainSupervisor)
 from repro_torch.serving import ServingEngine, Speculator  # noqa: E402
 from repro_torch.serving import speculative  # noqa: E402
-from repro_torch.train import make_train_step  # noqa: E402
+from repro_torch.train import (make_decode_step,  # noqa: E402
+                               make_prefill_step, make_train_step)
 from repro_torch.tree import (tree_leaves, tree_leaves_with_path,  # noqa: E402
                               tree_map)
 
@@ -380,6 +402,22 @@ TRAIN_ARGS = ["--arch", "qwen2-1.5b", "--steps", "10", "--global-batch",
 CKPT_LAYERS = 2
 SUP_BATCH, SUP_SEQ, SUP_STEPS, SUP_EVERY, SUP_FAIL = 4, 256, 4, 2, 3
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_TRAIN_LR = 1, 2, 1e-4
+#: phase 11, the encoder-decoder, seamless-m4t-medium whole (12 + 12
+#: layers): sources, their frames and the target prompts' tokens; the
+#: self-attention cache's capacity; greedy decode steps in bf16 and in the
+#: fp32 check; the bf16 plain route's bound on the first decode step's
+#: logits, relative to their largest |logit| (flash and plain round the
+#: attention's output differently, about one bf16 ulp a layer over 12
+#: layers); the training run's batch, source frames, target tokens, steps
+#: and lr (bf16 weights: an AdamW step of 1e-3 is above their ulp); phase
+#: 3's kv_valid at its heads.  Head dims other than 128, by path
+ENCDEC_B, ENCDEC_SRC, ENCDEC_PROMPT, ENCDEC_S_MAX = 8, 1024, 16, 256
+ENCDEC_STEPS, ENCDEC_EXACT_STEPS = 128, 32
+ENCDEC_BF16_REL = 0.05
+ENCDEC_TRAIN_B, ENCDEC_TRAIN_SRC, ENCDEC_TRAIN_TGT = 4, 512, 128
+ENCDEC_TRAIN_STEPS, ENCDEC_TRAIN_LR = 3, 1e-3
+ENCDEC_KV_VALID = [17, 256, 1, 100, 144, 255, 64, 129]
+HEAD_DIM = {"seamless-m4t-medium": 64}
 
 
 def _zero_counts() -> None:
@@ -564,11 +602,13 @@ def phase_kernels(seed: int) -> list:
     shapes: qwen2-1.5b's 12/2 heads, Mixtral-8x22B's 48/8 heads (whose
     prefill passes the 4096 window, decode the paged view of s_max 1024),
     jamba-v0.1-52b's 32/8 (GQA packing g = 4; no RoPE and no window,
-    which the kernel never sees), deepseek-coder-33b's 56/8 (g = 7) and
-    mistral-large-123b's 96/8 (g = 12)."""
+    which the kernel never sees), deepseek-coder-33b's 56/8 (g = 7),
+    mistral-large-123b's 96/8 (g = 12) and seamless-m4t-medium's 16/16
+    (g = 1) of head dim 64; every other path's head dim is 128."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     qwen, mixtral, jamba = "qwen2-1.5b", "mixtral-8x22b", "jamba-v0.1-52b"
     deepseek, mistral = "deepseek-coder-33b", "mistral-large-123b"
+    seamless = "seamless-m4t-medium"
     cases = [
         # path, name, dtype, B, S, T, H, Hkv, causal, window, q_offset,
         # kv_valid
@@ -622,11 +662,17 @@ def phase_kernels(seed: int) -> list:
          2047, None),
         (qwen, "split_S4_causal", torch.float32, 4, 4, 1024, 12, 2, True,
          None, 1020, [1024, 4, 513, 0]),
+        # seamless-m4t-medium's decoder self-attention decode (16/16 heads
+        # of 64, g = 1) over phase 11's s_max of 256, mixed kv_valid
+        (seamless, "seamless_decode", torch.bfloat16, 8, 1, 256, 16, 16,
+         False, None, 0, ENCDEC_KV_VALID),
+        (seamless, "seamless_decode", torch.float32, 8, 1, 256, 16, 16,
+         False, None, 0, ENCDEC_KV_VALID),
     ]
-    d = 128
     rows = []
     for (path, name, dt, b, s, t, h, hkv, causal, window, q_offset,
          valid) in cases:
+        d = HEAD_DIM.get(path, 128)
         q = torch.randn(b, s, h, d, generator=g, device="cuda").to(dt)
         k = torch.randn(b, t, hkv, d, generator=g, device="cuda").to(dt)
         v = torch.randn(b, t, hkv, d, generator=g, device="cuda").to(dt)
@@ -2228,6 +2274,213 @@ def phase_train_moe(seed) -> dict:
     return stats
 
 
+def _encdec_batch(cfg, b, src, tgt, seed, dtype) -> dict:
+    """Source embeddings [b, src, audio_embed_dim] and target tokens
+    [b, tgt], from a seeded generator on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    embeds = torch.randn(b, src, cfg.audio_embed_dim, generator=g,
+                         device="cuda").to(dtype)
+    tokens = torch.randint(0, cfg.vocab_size, (b, tgt), generator=g,
+                           device="cuda")
+    return {"src_embeds": embeds, "tokens": tokens}
+
+
+def _encdec_greedy(model, params, batch, steps) -> dict:
+    """``make_prefill_step`` at ENCDEC_S_MAX, then ``steps`` greedy
+    ``make_decode_step`` calls at a scalar position, with the counts set to
+    0 just before the prefill and read around every call.  Returns the
+    tokens [B, steps + 1], the first decode step's logits, each step's
+    (top-1 - top-2, largest |logit|) per row, the prefill's and each
+    step's seconds and the launches of the prefill and of each step."""
+    prefill = make_prefill_step(model, ENCDEC_S_MAX)
+    decode = make_decode_step(model)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = {k: c.launches for k, c in COUNTERS.items()}
+    if not torch.isfinite(logits).all():
+        raise AssertionError("encdec prefill: non-finite logits")
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].int()
+    toks, gaps, step_s, step_launches, first = [tok], [], [], [], None
+    pos = batch["tokens"].shape[1]
+    for i in range(steps):
+        n0 = {k: c.launches for k, c in COUNTERS.items()}
+        t0 = time.perf_counter()
+        tok, logits, cache = decode(params, tok, cache, pos + i)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        step_launches.append({k: c.launches - n0[k]
+                              for k, c in COUNTERS.items()})
+        last = logits[:, -1].float()
+        if not torch.isfinite(last).all():
+            raise AssertionError(f"encdec decode step {i}: non-finite "
+                                 "logits")
+        if first is None:
+            first = last.clone()
+        top = torch.topk(last, 2).values
+        gaps.append(torch.stack([top[:, 0] - top[:, 1],
+                                 last.abs().amax(-1)], 1))
+        toks.append(tok)
+    return dict(tokens=torch.cat(toks, 1).cpu(), first=first,
+                gaps=torch.stack(gaps).cpu(), prefill_s=prefill_s,
+                step_s=step_s, prefill_launches=prefill_launches,
+                step_launches=step_launches)
+
+
+def _encdec_first_tie(flash, plain) -> list:
+    """Each row's first differing token between two greedy runs, with the
+    plain run's top-2 gap there; fails unless the gap is under TIE_REL of
+    that row's largest |logit| (a tie)."""
+    ties = []
+    for row, (a, b) in enumerate(zip(flash["tokens"].tolist(),
+                                     plain["tokens"].tolist())):
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        if j == 0:
+            raise AssertionError(f"fp32 row {row}: the prefill's tokens "
+                                 "differ (no kernel runs there)")
+        gap, top = plain["gaps"][j - 1, row].tolist()
+        ties.append(dict(row=row, position=j, flash=a[j], plain=b[j],
+                         gap=gap, max_abs_logit=top))
+        if not gap < TIE_REL * top:
+            raise AssertionError(f"fp32 row {row}: token {j} differs "
+                                 f"({a[j]} against {b[j]}) with a top-2 "
+                                 f"gap of {gap} (max |logit| {top})")
+    return ties
+
+
+def phase_encdec(seed) -> dict:
+    """Phase 11: seamless-m4t-medium whole, random bf16 weights from
+    ``seed``.  (a) B = 8 sources of 1024 frames, prompts of 16 tokens,
+    prefill at s_max 256 and 128 greedy decode steps with flash on: logits
+    finite, flash once a decoder layer in every decode step and never in
+    the prefill (the reference's routing), no other kernel.  (b) The same
+    with flash off on the same weights: the first decode step's logits
+    within ENCDEC_BF16_REL of their largest |logit|, the share of equal
+    tokens reported.  (c) An fp32 copy of the weights, flash against
+    plain over 32 steps: identical tokens, a difference passing only as a
+    tie (``phase_spec_exact``'s contract).  (d) 3 train steps (B = 4, 512
+    source frames, 128 target tokens, bf16 weights, fp32 moments, remat,
+    flash off as in the reference): the loss finite and falling, no kernel
+    launched."""
+    cfg = get_config("seamless-m4t-medium").replace(use_flash=True)
+    model, params = _init(cfg, seed)
+    layers = cfg.num_layers
+    batch = _encdec_batch(cfg, ENCDEC_B, ENCDEC_SRC, ENCDEC_PROMPT, seed,
+                          torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    flash = _encdec_greedy(model, params, batch, ENCDEC_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if any(flash["prefill_launches"].values()):
+        raise AssertionError(f"encdec prefill launched "
+                             f"{flash['prefill_launches']}")
+    want = dict.fromkeys(COUNTERS, 0) | {"flash_attention": layers}
+    bad = [i for i, n in enumerate(flash["step_launches"]) if n != want]
+    if bad:
+        raise AssertionError(f"encdec decode step {bad[0]} launched "
+                             f"{flash['step_launches'][bad[0]]}, expected "
+                             f"{want}")
+    launches = {k: sum(n[k] for n in flash["step_launches"])
+                for k in COUNTERS}
+    wall = flash["prefill_s"] + sum(flash["step_s"])
+    stats = dict(arch=cfg.name, layers=layers,
+                 encoder_layers=cfg.num_encoder_layers, batch=ENCDEC_B,
+                 src_frames=ENCDEC_SRC, prompt=ENCDEC_PROMPT,
+                 s_max=ENCDEC_S_MAX, steps=ENCDEC_STEPS,
+                 tokens=ENCDEC_B * ENCDEC_STEPS,
+                 tokens_per_s=ENCDEC_B * ENCDEC_STEPS / wall, wall_s=wall,
+                 prefill_ms=flash["prefill_s"] * 1e3,
+                 decode_step_ms=statistics.median(flash["step_s"]) * 1e3,
+                 decode_tokens_per_s=ENCDEC_B * ENCDEC_STEPS
+                 / sum(flash["step_s"]),
+                 peak_mem_gb=peak, launches=launches,
+                 launches_prefill=flash["prefill_launches"])
+    print("encdec serve: " + json.dumps(stats))
+
+    plain = _encdec_greedy(build_model(cfg.replace(use_flash=False), "cuda"),
+                           params, batch, ENCDEC_STEPS)
+    if any(plain["prefill_launches"].values()) or any(
+            any(n.values()) for n in plain["step_launches"]):
+        raise AssertionError("encdec plain route launched a kernel")
+    rel = ((flash["first"] - plain["first"]).abs().max()
+           / plain["first"].abs().max()).item()
+    if not rel <= ENCDEC_BF16_REL:
+        raise AssertionError(f"encdec bf16 first decode step: flash and "
+                             f"plain logits differ by {rel} of the largest "
+                             f"|logit| > {ENCDEC_BF16_REL}")
+    stats["plain"] = dict(
+        first_step_rel_diff=rel, bound_rel=ENCDEC_BF16_REL,
+        same_token_share=(flash["tokens"] == plain["tokens"]).float()
+        .mean().item(),
+        tokens_per_s=ENCDEC_B * ENCDEC_STEPS
+        / (plain["prefill_s"] + sum(plain["step_s"])),
+        decode_step_ms=statistics.median(plain["step_s"]) * 1e3)
+    print("encdec plain route: " + json.dumps(stats["plain"]))
+    del flash, plain
+
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    params32 = _cast_tree(params, torch.float32)
+    batch32 = dict(batch, src_embeds=batch["src_embeds"].float())
+    runs = {name: _encdec_greedy(build_model(cfg32.replace(use_flash=f),
+                                             "cuda"),
+                                 params32, batch32, ENCDEC_EXACT_STEPS)
+            for name, f in (("flash", True), ("plain", False))}
+    ties = _encdec_first_tie(runs["flash"], runs["plain"])
+    stats["fp32_exact"] = dict(
+        steps=ENCDEC_EXACT_STEPS, ties=ties,
+        first_step_rel_diff=((runs["flash"]["first"]
+                              - runs["plain"]["first"]).abs().max()
+                             / runs["plain"]["first"].abs().max()).item(),
+        flash_launches=sum(n["flash_attention"]
+                           for n in runs["flash"]["step_launches"]))
+    print("encdec fp32 exact: " + json.dumps(stats["fp32_exact"]))
+    del params32, batch32, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    stats["train"] = _encdec_train(build_model(cfg.replace(use_flash=False),
+                                               "cuda"), params, seed)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def _encdec_train(model, params, seed) -> dict:
+    """Phase 11 (d): ENCDEC_TRAIN_STEPS steps of ``make_train_step`` on one
+    batch (labels = the target tokens), updating ``params`` in place."""
+    batch = _encdec_batch(model.cfg, ENCDEC_TRAIN_B, ENCDEC_TRAIN_SRC,
+                          ENCDEC_TRAIN_TGT, seed + 11, torch.bfloat16)
+    batch["labels"] = batch["tokens"]
+    opt = adamw_init(params)
+    step_fn = make_train_step(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    losses, step_ms = [], []
+    for _ in range(ENCDEC_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch, ENCDEC_TRAIN_LR)
+        losses.append(float(m["loss"]))     # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = _no_launches("encdec training")
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"encdec training losses {losses}")
+    stats = dict(batch=ENCDEC_TRAIN_B, src_frames=ENCDEC_TRAIN_SRC,
+                 target_tokens=ENCDEC_TRAIN_TGT, lr=ENCDEC_TRAIN_LR,
+                 remat=model.cfg.remat, losses=losses, step_ms=step_ms,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 launches=launches)
+    print("encdec train: " + json.dumps(stats))
+    del opt
+    return stats
+
+
 def _init(cfg, seed):
     model = build_model(cfg, "cuda")
     t0 = time.perf_counter()
@@ -2442,6 +2695,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # phase 11: the encoder-decoder, served through the step functions
+    encdec = phase_encdec(args.seed)
+
     # each row carries its kernel's launches on the path it was sized for
     # (the fp32 and synthetic-mask rows: the path whose heads they use);
     # the cluster runs serve qwen2-1.5b, so their launches are added into
@@ -2449,7 +2705,7 @@ def main() -> int:
     # serving run are listed under their own names only
     by_path = {p["arch"]: p["launches"]
                for p in (qwen, mixtral, rwkv, jamba, *decoders.values(),
-                         scan_path)}
+                         scan_path, encdec)}
     cluster_runs = {cluster[k]["path"]: cluster[k]["launches"]
                     for k in ("chunked", "whole")}
     own_runs = {f"internvl2-26b image prefix {k}": v["launches"]
@@ -2467,7 +2723,8 @@ def main() -> int:
                                    for n in cluster_runs.values())
     print(json.dumps({"kernels": rows, "spec": spec, "cluster": cluster,
                       "hybrid_handoff": handoff, "vlm": vlm,
-                      "decoders": decoders, "train": train}))
+                      "decoders": decoders, "train": train,
+                      "encdec": encdec}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,8 @@ with random weights at the serving shape of ``chip_smoke.py``'s main paths.
         --arch qwen3-8b --out build/profile_qwen3.json
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch kimi-k2-1t-a32b --layers 1 --out build/profile_kimi.json
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch seamless-m4t-medium --out build/profile_seamless.json
 
 ``--layers`` cuts the depth (the widths stay as published): full
 Mixtral-8x22B needs ~281 GB, so one card holds 8 of its 56 layers; full
@@ -23,6 +25,11 @@ Jamba ~104 GB, so one card holds 2 of its 4 superblocks (16 of 32 layers;
 the hybrid's depth must be a multiple of its superblock, ``attn_every``);
 mistral-large-123b 22 of its 88 layers and kimi-k2-1t-a32b 1 of its 61
 (17.05B parameters a layer).
+
+The encoder-decoder (``seamless-m4t-medium``, whole) has no engine path
+(no ``init_cache``, as in the reference): its windows time
+``make_prefill_step`` (B = 8 sources of 1024 frames, 16 target tokens,
+s_max 256) and steps of ``make_decode_step`` at a scalar position.
 
 Prints one JSON object with, per window: host wall time (taken without the
 profiler, on the same calls just before), device busy time (the sum of
@@ -52,11 +59,15 @@ from ..device import resolve_device
 from ..models import build_model, ssm
 from ..models.transformer import _layer
 from ..serving import ServingEngine
+from ..train import make_decode_step, make_prefill_step
 
 MAX_BATCH, S_MAX, PROMPT_LEN = 8, 2048, 1024
 STEPS = 10        # decode steps per window
 PREFILLS = 3      # prefills per window
 TOP = 12          # kernels listed per window
+#: the encoder-decoder's windows: source frames, target prompt tokens and
+#: the self-attention cache's capacity (``chip_smoke.py``'s phase 11)
+ENCDEC_SRC, ENCDEC_PROMPT, ENCDEC_S_MAX = 1024, 16, 256
 #: the hand-written kernels, by a substring of their CUDA function names
 KERNELS = {"flash_attention": "flash_", "grouped_swiglu": "gmm_",
            "wkv6": "wkv6_", "prefix_scan": "prefix_scan_"}
@@ -133,6 +144,36 @@ def _mamba_windows(cfg, params, device) -> dict:
             "mamba_ms_per_prefill": layer["device_busy_ms"] * n_mamba}
 
 
+def _encdec_windows(model, params, rng, seed) -> tuple[dict, dict,
+                                                      profile]:
+    """(prefill window, decode window, the decode window's profile) of
+    the encoder-decoder through the step functions."""
+    cfg, device = model.cfg, model.device
+    g = torch.Generator(device=device).manual_seed(seed)
+    batch = {"src_embeds": torch.randn(
+                 MAX_BATCH, ENCDEC_SRC, cfg.audio_embed_dim, generator=g,
+                 device=device).to(params["embed"]["table"].dtype),
+             "tokens": torch.as_tensor(rng.integers(
+                 0, cfg.vocab_size, (MAX_BATCH, ENCDEC_PROMPT)),
+                 device=device)}
+    prefill_step = make_prefill_step(model, ENCDEC_S_MAX)
+    decode_step = make_decode_step(model)
+    logits, cache = prefill_step(params, batch)          # warm-up
+    prefill, _ = _window(lambda: prefill_step(params, batch), PREFILLS)
+    state = {"token": torch.argmax(logits[:, -1], -1)[:, None].int(),
+             "cache": cache, "pos": ENCDEC_PROMPT}
+
+    def step():
+        state["token"], _, state["cache"] = decode_step(
+            params, state["token"], state["cache"], state["pos"])
+        state["pos"] += 1
+
+    step()                                               # warm-up
+    decode, prof = _window(step, STEPS)
+    return dict(prefill, prompt_len=ENCDEC_PROMPT,
+                src_frames=ENCDEC_SRC), decode, prof
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen2-1.5b")
@@ -155,23 +196,31 @@ def main(argv=None) -> int:
     model = build_model(cfg, device)
     params = model.init(args.seed)
     rng = np.random.default_rng(args.seed)
-    eng = ServingEngine(model, params, max_batch=MAX_BATCH, s_max=S_MAX,
-                        kv_mode="auto")
-    budget = 2 * STEPS + 4 * MAX_BATCH   # outlasts admission and windows
-    for _ in range(MAX_BATCH):
-        eng.submit(rng.integers(0, cfg.vocab_size,
-                                int(rng.integers(64, PROMPT_LEN + 1))),
-                   max_new_tokens=budget)
-    while eng.batcher.waiting_count or None in eng.slot_req:
-        eng.step()                      # admit and prefill every slot
-    eng.step()                          # warm the decode path
-    decode, prof = _window(eng.step, STEPS)
+    if cfg.family == "encdec":
+        prefill, decode, prof = _encdec_windows(model, params, rng,
+                                                args.seed)
+        kv_mode, s_max = "step functions", ENCDEC_S_MAX
+    else:
+        eng = ServingEngine(model, params, max_batch=MAX_BATCH, s_max=S_MAX,
+                            kv_mode="auto")
+        budget = 2 * STEPS + 4 * MAX_BATCH  # outlasts admission and windows
+        for _ in range(MAX_BATCH):
+            eng.submit(rng.integers(0, cfg.vocab_size,
+                                    int(rng.integers(64, PROMPT_LEN + 1))),
+                       max_new_tokens=budget)
+        while eng.batcher.waiting_count or None in eng.slot_req:
+            eng.step()                  # admit and prefill every slot
+        eng.step()                      # warm the decode path
+        decode, prof = _window(eng.step, STEPS)
 
-    prompt = torch.as_tensor(
-        rng.integers(0, cfg.vocab_size, (1, PROMPT_LEN)), device=device)
-    model.prefill(params, {"tokens": prompt}, S_MAX)    # warm-up
-    prefill, _ = _window(
-        lambda: model.prefill(params, {"tokens": prompt}, S_MAX), PREFILLS)
+        prompt = torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (1, PROMPT_LEN)), device=device)
+        model.prefill(params, {"tokens": prompt}, S_MAX)    # warm-up
+        prefill, _ = _window(
+            lambda: model.prefill(params, {"tokens": prompt}, S_MAX),
+            PREFILLS)
+        prefill = dict(prefill, prompt_len=PROMPT_LEN)
+        kv_mode, s_max = eng.kv_mode, S_MAX
 
     mamba = None
     if cfg.family == "hybrid":
@@ -184,9 +233,9 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout
     out = {"device": card.splitlines()[0].strip(), "arch": cfg.name,
-           "layers": cfg.num_layers, "kv_mode": eng.kv_mode,
-           "max_batch": MAX_BATCH, "s_max": S_MAX, "decode_step": decode,
-           "prefill": dict(prefill, prompt_len=PROMPT_LEN)}
+           "layers": cfg.num_layers, "kv_mode": kv_mode,
+           "max_batch": MAX_BATCH, "s_max": s_max, "decode_step": decode,
+           "prefill": prefill}
     if mamba is not None:
         out["mamba"] = mamba
     print(json.dumps(out))

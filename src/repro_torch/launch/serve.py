@@ -29,7 +29,10 @@ whole; full ``mistral-large-123b`` (246 GB) and ``kimi-k2-1t-a32b`` (384
 experts, top-8; ~2 TB) do not, so on the GPU run them with ``--smoke``
 (``chip_smoke.py`` serves 22 and 1 of their layers at full width).
 qwen3-8b shares qwen2-1.5b's vocab, so ``--arch qwen3-8b --spec-draft
-qwen2-1.5b`` drafts with the smaller model.
+qwen2-1.5b`` drafts with the smaller model.  ``--arch seamless-m4t-medium``
+exits 2: the engine cannot serve the encoder-decoder family (no
+``init_cache``, as in the reference); ``chip_smoke.py`` serves it through
+the step functions.
 
 Speculative decoding: ``--spec-draft self`` (the target drafts for itself)
 or a ported zoo name with the target's vocab; ``--spec-k`` and
@@ -530,6 +533,13 @@ def main(argv=None) -> int:
         cfg = get_config(args.arch)
     except KeyError as e:
         print(e.args[0], file=sys.stderr)
+        return 2
+    if cfg.family == "encdec":
+        print(f"--arch {args.arch}: the engine cannot serve the "
+              "encoder-decoder family: it needs model.init_cache, and this "
+              "family's cache comes from prefill, which needs the encoder's "
+              "output (as in the reference); drive it with "
+              "train.make_prefill_step and make_decode_step", file=sys.stderr)
         return 2
     try:
         device = resolve_device(args.device)

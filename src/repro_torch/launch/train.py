@@ -11,7 +11,9 @@ On the CPU, scaled down, with checkpoints (run it again to resume):
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \
         --steps 3 --ckpt-dir runs/ckpt
 
-``--smoke`` scales the architecture down to a ~100M-class model.  The loop
+``--smoke`` scales the architecture down to a ~100M-class model.
+``--arch seamless-m4t-medium`` exits 2: the data pipeline makes no source
+embeddings for the encoder-decoder family.  The loop
 is the reference's: deterministic data pipeline, AdamW + warmup cosine,
 async checkpointing, the straggler detector's hook, and resume from the
 latest checkpoint.  The flags are those of ``repro.launch.train`` plus
@@ -129,9 +131,15 @@ def train(args: argparse.Namespace) -> dict:
 def main(argv=None) -> int:
     args = parse_args(argv)
     try:
-        get_config(args.arch)
+        cfg = get_config(args.arch)
     except KeyError as e:
         print(e.args[0], file=sys.stderr)
+        return 2
+    if cfg.family == "encdec":
+        print(f"--arch {args.arch}: the launcher cannot train the "
+              "encoder-decoder family: its DataPipeline makes token batches "
+              "only, and this family's batches need src_embeds; drive it "
+              "with train.make_train_step", file=sys.stderr)
         return 2
     try:
         resolve_device(args.device)

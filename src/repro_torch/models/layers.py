@@ -89,10 +89,12 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int,
 
 def embed(p: dict, tokens: torch.Tensor,
           onehot: bool = False) -> torch.Tensor:
-    """Gather form only: the reference's one-hot form is off for the ported
-    configs."""
+    """Row gather, or with ``onehot`` the reference's matmul form: one-hot
+    rows in the table's dtype times the table (one nonzero term a sum, so
+    the same values as the gather)."""
     if onehot:
-        raise NotImplementedError("the one-hot embedding is not ported")
+        oh = F.one_hot(tokens.long(), p["table"].shape[0])
+        return oh.to(p["table"].dtype) @ p["table"]
     return p["table"][tokens]
 
 

@@ -1,9 +1,12 @@
-"""Uniform model interface (``Model``, ``build_model``) for the ported
-families: ``dense``, ``moe`` and ``vlm`` (one trunk, as in the reference:
-the engine serves a VLM text-only, and ``prefill`` takes a batch's
-``image_embeds``), ``ssm``
-(RWKV-6, no paged path) and ``hybrid`` (Jamba: paged attention KV, Mamba
-states per slot; no chunked prefill, prefix caching or verify path).
+"""Uniform model interface (``Model``, ``build_model``) for every family of
+the reference: ``dense``, ``moe`` and ``vlm`` (one trunk, as in the
+reference: the engine serves a VLM text-only, and ``prefill`` takes a
+batch's ``image_embeds``), ``ssm`` (RWKV-6, no paged path), ``hybrid``
+(Jamba: paged attention KV, Mamba states per slot; no chunked prefill,
+prefix caching or verify path) and ``encdec`` (SeamlessM4T: no
+``init_cache``, since its cache comes from prefill, which needs the
+encoder's output; so the engine cannot serve it, as in the reference, and
+it runs through ``train.step``'s prefill and decode steps).
 
 The PyTorch counterpart of ``repro/models/model_zoo.py``.  A ``Model`` is
 bound to a device; ``init(seed)`` draws its parameters there.  ``forward``
@@ -20,7 +23,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from . import hybrid, rwkv_lm, transformer
+from . import encdec, hybrid, rwkv_lm, transformer
 from .transformer import LMOutputs
 
 __all__ = ["Model", "build_model", "lm_loss"]
@@ -118,9 +121,21 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
             # chunked prefill needs Mamba state carry across chunks: the
             # hybrid prefills whole prompts (still paged for decode)
         )
+    if cfg.family == "encdec":
+        return Model(
+            cfg=cfg,
+            device=dev,
+            init=lambda seed: encdec.init_encdec(
+                torch.Generator(device=dev).manual_seed(seed), cfg),
+            forward=lambda p, b: encdec.encdec_forward(p, b, cfg),
+            prefill=lambda p, b, s_max=None: encdec.encdec_prefill(
+                p, b, cfg, s_max),
+            decode_step=lambda p, tok, cache, pos: encdec.encdec_decode_step(
+                p, tok, cache, pos, cfg),
+            init_cache=None,  # produced by prefill (needs encoder output)
+        )
     if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(f"family {cfg.family!r} is not yet ported "
-                                  "to repro_torch")
+        raise ValueError(f"unknown family: {cfg.family}")
     return Model(
         cfg=cfg,
         device=dev,

@@ -8,7 +8,11 @@ with ``[L, E, ...]`` expert leaves; for ``ssm``, ``blocks/{ln1, tm, ln2,
 cm}``; ``vlm`` adds the unstacked projector ``vis_proj/{fc1, fc2}/w``).
 The ``hybrid`` tree stacks superblocks instead: ``superblocks/
 layers`` is a list of a superblock's layers, each leaf ``[n_sb, ...]``.  The
-port keeps those trees and layouts, so the bridge is a leaf-by-leaf copy.  bf16 leaves arrive as ``ml_dtypes`` bfloat16 arrays;
+``encdec`` tree has two stacks, ``enc_blocks`` ``[num_encoder_layers,
+...]`` and ``dec_blocks`` ``[num_layers, ...]``, with ``enc_ln_f`` and,
+where the source width differs from ``d_model``, ``audio_proj``.  The
+port keeps those trees and layouts, so the bridge is a leaf-by-leaf copy.
+bf16 leaves arrive as ``ml_dtypes`` bfloat16 arrays;
 they are viewed as ``uint16`` and then as ``torch.bfloat16``, bit for bit,
 without importing ``ml_dtypes``.
 """
@@ -51,21 +55,26 @@ def _convert(tree, device, dtype, path=""):
 
 def from_numpy_params(tree: dict, cfg: ModelConfig, device,
                       dtype: Optional[torch.dtype] = None) -> dict:
-    """Convert the reference's numpy parameter tree for a ``dense``,
-    ``moe``, ``vlm``, ``ssm`` or ``hybrid`` config.  ``dtype`` casts every
-    leaf but the fp32 MoE router, RWKV ``w0`` and ``u`` and Mamba ``a_log``
-    and ``d_skip`` (None keeps each leaf's own type)."""
-    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
-        raise NotImplementedError(f"family {cfg.family!r} is not yet ported")
+    """Convert the reference's numpy parameter tree for a config of any
+    family.  ``dtype`` casts every leaf but the fp32 MoE router, RWKV
+    ``w0`` and ``u`` and Mamba ``a_log`` and ``d_skip`` (None keeps each
+    leaf's own type)."""
     if cfg.family == "hybrid":
-        stacked, lead, unit = ("superblocks",
-                               cfg.num_layers // cfg.attn_every, "superblocks")
+        stacks = {"superblocks": (cfg.num_layers // cfg.attn_every,
+                                  "superblocks")}
+    elif cfg.family == "encdec":
+        stacks = {"enc_blocks": (cfg.num_encoder_layers, "encoder layers"),
+                  "dec_blocks": (cfg.num_layers, "decoder layers")}
     else:
-        stacked, lead, unit = "blocks", cfg.num_layers, "layers"
-    want = {"embed", stacked, "ln_f"} | (set() if cfg.tie_embeddings
+        stacks = {"blocks": (cfg.num_layers, "layers")}
+    want = {"embed", "ln_f", *stacks} | (set() if cfg.tie_embeddings
                                          else {"lm_head"})
     if cfg.vision_embed_dim:
         want.add("vis_proj")
+    if cfg.family == "encdec":
+        want.add("enc_ln_f")
+        if cfg.audio_embed_dim and cfg.audio_embed_dim != cfg.d_model:
+            want.add("audio_proj")
     if set(tree) != want:
         raise ValueError(f"parameter tree has {sorted(tree)}, "
                          f"{cfg.name} needs {sorted(want)}")
@@ -78,14 +87,15 @@ def from_numpy_params(tree: dict, cfg: ModelConfig, device,
             raise ValueError(f"vis_proj has {shapes}, {cfg.name} needs "
                              f"{need}")
 
-    def check_stacked(sub, path):
+    def check_stacked(sub, path, lead, unit):
         if isinstance(sub, (dict, list)):
             items = sub.items() if isinstance(sub, dict) else enumerate(sub)
             for k, v in items:
-                check_stacked(v, f"{path}/{k}")
+                check_stacked(v, f"{path}/{k}", lead, unit)
         elif np.shape(sub)[0] != lead:
             raise ValueError(f"{path}: leading dim {np.shape(sub)[0]} != "
                              f"{lead} {unit}")
 
-    check_stacked(tree[stacked], stacked)
+    for name, (lead, unit) in stacks.items():
+        check_stacked(tree[name], name, lead, unit)
     return _convert(tree, torch.device(device), dtype)

@@ -18,10 +18,12 @@ from repro_torch.params import from_numpy_params
 FP32 = dict(dtype="float32", param_dtype="float32")
 
 
-def configs(arch="qwen2-1.5b", **over):
+def configs(arch="qwen2-1.5b", layers=2, **over):
     """(reference cfg, port cfg): scaled-down ``arch`` in fp32."""
-    jcfg = jax_scale_down(jax_get_config(arch)).replace(**FP32, **over)
-    tcfg = scale_down(get_config(arch)).replace(**FP32, **over)
+    jcfg = jax_scale_down(jax_get_config(arch), layers=layers).replace(
+        **FP32, **over)
+    tcfg = scale_down(get_config(arch), layers=layers).replace(**FP32,
+                                                               **over)
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
     return jcfg, tcfg
 

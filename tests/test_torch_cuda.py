@@ -534,3 +534,44 @@ def test_wrapper_refuses_inputs_that_require_grad_on_card(name):
         assert counter.launches == before + 1
         assert not (out[0] if isinstance(out, tuple) else out).requires_grad
         xs[i].requires_grad_(False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [("float32", 1e-4),
+                                       ("bfloat16", 5e-2)])
+def test_encdec_decode_step_flash_matches_plain_on_card(dtype, rel):
+    """A scaled seamless-m4t-medium (2 + 2 layers, d_model 256, 4 heads of
+    64 with 4 kv heads: g = 1) prefilled once, then a decode step with
+    flash on (the split route at d = 64, g = 1: one launch a decoder layer,
+    none in the prefill) against the plain route on the same cache: the
+    logits within ``rel`` of their largest |logit| (fp32: summation order;
+    bf16: the two routes round the attention's output differently)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.configs import get_config, scale_down
+    from repro_torch.models import build_model
+    cfg = scale_down(get_config("seamless-m4t-medium"), d_model=256,
+                     d_ff=512, heads=4).replace(dtype=dtype,
+                                                param_dtype=dtype)
+    assert cfg.resolved_head_dim == 64 and cfg.num_kv_heads == 4
+    flash = build_model(cfg.replace(use_flash=True), "cuda")
+    plain = build_model(cfg, "cuda")
+    params = flash.init(0)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"src_embeds": torch.randn(4, 40, cfg.audio_embed_dim,
+                                       generator=g, device="cuda"),
+             "tokens": torch.randint(0, cfg.vocab_size, (4, 9), generator=g,
+                                     device="cuda")}
+    token = torch.randint(0, cfg.vocab_size, (4, 1), generator=g,
+                          device="cuda")
+    with torch.no_grad():
+        before = ops.flash_attention.launches
+        _, cache = flash.prefill(params, batch, 64)
+        assert ops.flash_attention.launches == before
+        want, _ = plain.decode_step(params, token, cache, 9)
+        got, _ = flash.decode_step(params, token, cache, 9)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + cfg.num_layers
+    want = want.float()
+    err = (got.float() - want).abs().max().item()
+    assert err <= rel * want.abs().max().item()

@@ -30,7 +30,8 @@ SERVE = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
 
 #: modules that must be among those scanned (the MoE slice's, the RWKV
 #: slice's with the last two kernels, speculative decoding's, the
-#: scheduler and live cluster's, the hybrid's, and training's)
+#: scheduler and live cluster's, the hybrid's, training's and the
+#: encoder-decoder's)
 REQUIRED = ("repro_torch.serving.speculative",
             "repro_torch.core.scheduler", "repro_torch.analysis.schedlint",
             "repro_torch.core.device.weighted_partition",
@@ -47,7 +48,9 @@ REQUIRED = ("repro_torch.serving.speculative",
             "repro_torch.optim.adamw", "repro_torch.optim.schedule",
             "repro_torch.train.step", "repro_torch.checkpoint.ckpt",
             "repro_torch.data.pipeline", "repro_torch.data.packing",
-            "repro_torch.launch.train") + tuple(
+            "repro_torch.launch.train", "repro_torch.models.encdec",
+            "repro_torch.configs.seamless_m4t_medium",
+            "repro_torch.launch.input_specs") + tuple(
     f"repro_torch.kernels.{k}{m}" for k in ("wkv6", "prefix_scan")
     for m in ("", ".ops", ".ref", ".build"))
 
@@ -264,13 +267,21 @@ def test_launcher_without_cuda_fails_loudly():
     assert "no CUDA device" in out.stderr
 
 
-@pytest.mark.parametrize("flag", [["--arch", "seamless-m4t-medium"]])
+@pytest.mark.parametrize("flag", [
+    SERVE + ["--device", "cpu", "--arch", "seamless-m4t-medium"],
+    [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
+     "--smoke", "--steps", "1", "--arch", "seamless-m4t-medium"]])
 def test_launcher_refuses_what_is_not_ported(flag):
-    out = subprocess.run(SERVE + ["--device", "cpu"] + flag, env=ENV,
-                         cwd=ROOT, capture_output=True, text=True,
-                         timeout=120)
-    assert out.returncode == 2
-    assert "not yet ported" in out.stderr
+    """Neither launcher takes the encoder-decoder family (exit 2 with the
+    reason): the engine needs ``model.init_cache``, which the family lacks
+    (as in the reference), and the training launcher's pipeline makes no
+    ``src_embeds``."""
+    out = subprocess.run(flag, env=ENV, cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 2, out.stdout + out.stderr
+    assert "encoder-decoder family" in out.stderr
+    assert ("init_cache" if "serve" in flag[2] else "src_embeds") \
+        in out.stderr
 
 
 def test_profile_serve_refuses_a_partial_superblock():
@@ -336,8 +347,8 @@ def test_build_model_defaults_to_cuda():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_model(cfg)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_model(cfg.replace(family="encdec"), "cpu")
+    with pytest.raises(ValueError, match="unknown family: lstm"):
+        build_model(cfg.replace(family="lstm"), "cpu")
 
 
 def _ref_tree(arch="qwen2-1.5b", **over):

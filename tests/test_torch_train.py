@@ -1,6 +1,6 @@
 """The port's training path against the JAX reference on the CPU: the
-training forward, the loss and its gradients for the dense, MoE, VLM, RWKV
-and hybrid families; the loss's chunked form; remat; AdamW and the
+training forward, the loss and its gradients for the dense, MoE, VLM,
+RWKV, hybrid and encoder-decoder families; the loss's chunked form; remat; AdamW and the
 schedule; the train step; the Mamba scan's two forms; the data packer; the
 train launcher; and the counterpart of ``tests/test_system.py``: train with
 an injected failure, recover bit for bit, serve the trained weights.
@@ -62,8 +62,11 @@ FAMILIES = {"dense": ("qwen2-1.5b", {}),
                                              "capacity_factor": 0.5}),
             "vlm": ("internvl2-26b", {}),
             "ssm": ("rwkv6-3b", {}),
-            "hybrid": ("jamba-v0.1-52b", {})}
+            "hybrid": ("jamba-v0.1-52b", {}),
+            "encdec": ("seamless-m4t-medium", {})}
 SEQ = 20
+#: source frames of an encoder-decoder batch
+SRC = 12
 
 
 
@@ -104,6 +107,9 @@ def _batch(cfg, seed=0, b=2, s=SEQ):
         batch["image_embeds"] = rng.standard_normal(
             (b, cfg.num_image_tokens, cfg.vision_embed_dim)
         ).astype(np.float32)
+    if cfg.num_encoder_layers:
+        batch["src_embeds"] = rng.standard_normal(
+            (b, SRC, cfg.audio_embed_dim)).astype(np.float32)
     return ({k: jnp.asarray(v) for k, v in batch.items()},
             {k: torch.from_numpy(v) for k, v in batch.items()})
 
@@ -188,7 +194,8 @@ def test_xent_chunked_matches_full():
     torch.testing.assert_close(grads[1], grads[0], rtol=0, atol=1e-7)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "jamba-v0.1-52b",
+                                  "seamless-m4t-medium"])
 def test_remat_gradients_bit_exact(arch):
     """Recomputing each layer (``remat``) changes no gradient bit."""
     cfg = scale_down(get_config(arch)).replace(**FP32)
