@@ -218,6 +218,25 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    target tokens, bf16 weights, fp32 moments, remat, flash off): the loss
    finite and falling, no kernel launched; step ms and peak GB printed.
 
+12. multi-device (``phase_multidevice``): (a) an NCCL process group of
+   one rank and ``make_host_mesh(1, 1)`` on the card; qwen2-1.5b at full
+   width (phase 4's seed) placed as DTensors by ``param_shardings``, with
+   ``activation_sharding`` on (``_pin`` redistributes), flash off: 8
+   prompts of 512 tokens through ``train.step``'s prefill, then 16 greedy
+   decode steps, against the same steps on the plain tensors (in turns:
+   plain, DTensor, DTensor, plain): every step's logits bit-equal, the
+   same tokens, no kernel launched; prefill and decode-step ms of each run
+   printed (DTensor's dispatch cost); (b) ``compressed_allreduce`` over that group on seeded
+   fp32 gradients of qwen2-1.5b's shapes: bf16(g + e) widened and its
+   residual, bit for bit; ms printed; (c) in a subprocess (a fake group
+   and NCCL cannot share the default group), the production dry run:
+   qwen2-1.5b x decode_32k on 16x16 and mixtral-8x22b x decode_32k on
+   2x16x16 traced whole, qwen2-1.5b x train_4k and x prefill_32k on 16x16
+   through ``analyze_cell``'s 1- and 2-period points (their full-depth
+   traces take minutes on the host); each ``status`` ok with
+   ``param_bytes`` the tree's bytes; per-device argument bytes, collective
+   bytes by kind and seconds printed.
+
 Every kernel launch of a path is counted by its wrapper, with the counts
 set to 0 just before the path and read just after, and held per engine
 call: each prefill and decode call launches a kernel once for every layer
@@ -231,7 +250,8 @@ calls launched.
 Two lines before the last is the JSON record of the kernels, of the
 speculative phases (``spec``), of the cluster phases (``cluster``), of the
 image prefix (``vlm``), of main paths 5-9 (``decoders``), of training
-(``train``) and of the encoder-decoder (``encdec``);
+(``train``), of the encoder-decoder (``encdec``) and of phase 12
+(``multidevice``);
 flash attention's rows at qwen2-1.5b's heads count the cluster runs'
 launches too (the image-prefix runs are added to no row); every row lists
 its kernel's launches on each path in ``launches_by_path`` (the trained
@@ -248,6 +268,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -258,7 +279,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor import distribute_tensor
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -287,14 +311,18 @@ from repro_torch.kernels.wkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.wkv6.ref import wkv6_plain  # noqa: E402
 from repro_torch.data import DataPipeline, SyntheticCorpus  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.attention import PagedKVCache  # noqa: E402
 from repro_torch.models.transformer import _layer  # noqa: E402
 from repro_torch.optim import adamw_init  # noqa: E402
+from repro_torch.optim import compressed_allreduce  # noqa: E402
 from repro_torch.runtime import (SimulatedFailure,  # noqa: E402
                                  TrainSupervisor)
 from repro_torch.serving import ServingEngine, Speculator  # noqa: E402
+from repro_torch.sharding import (batch_spec, distribute,  # noqa: E402
+                                  param_shardings, placements_for)
 from repro_torch.serving import speculative  # noqa: E402
 from repro_torch.train import (make_decode_step,  # noqa: E402
                                make_prefill_step, make_train_step)
@@ -418,6 +446,18 @@ ENCDEC_TRAIN_B, ENCDEC_TRAIN_SRC, ENCDEC_TRAIN_TGT = 4, 512, 128
 ENCDEC_TRAIN_STEPS, ENCDEC_TRAIN_LR = 3, 1e-3
 ENCDEC_KV_VALID = [17, 256, 1, 100, 144, 255, 64, 129]
 HEAD_DIM = {"seamless-m4t-medium": 64}
+#: phase 12, multi-device: qwen2-1.5b's prompts on the one-rank mesh
+#: (batch, tokens each), greedy decode steps, the compression's timed
+#: repeats; the dry run's cells (arch, shape, 2x16x16?), and those traced
+#: through the 1- and 2-period points of ``analyze_cell`` (a full-depth
+#: trace of the 32k prefill or the 4k train step takes minutes on the
+#: host: the chunked attention runs as ~10^4 meta ops a layer)
+MD_PROMPTS, MD_PROMPT_LEN, MD_STEPS, MD_REPS = 8, 512, 16, 3
+DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", False),
+                ("qwen2-1.5b", "prefill_32k", False),
+                ("qwen2-1.5b", "decode_32k", False),
+                ("mixtral-8x22b", "decode_32k", True))
+DRYRUN_ANALYZED = ("train_4k", "prefill_32k")
 
 
 def _zero_counts() -> None:
@@ -2481,6 +2521,219 @@ def _encdec_train(model, params, seed) -> dict:
     return stats
 
 
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _md_steps(model, params, batch, s_max):
+    """``train.step``'s prefill, then ``MD_STEPS`` greedy decode steps:
+    (every step's logits as plain tensors, tokens, prefill ms, decode ms
+    of each step)."""
+    prefill = make_prefill_step(model, s_max)
+    decode = make_decode_step(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    full = [logits.full_tensor() if hasattr(logits, "full_tensor")
+            else logits]
+    nxt = torch.argmax(full[0][:, -1], -1)[:, None].int()
+    if hasattr(logits, "full_tensor"):
+        nxt = distribute_tensor(nxt, logits.device_mesh,
+                                batch["tokens"].placements)
+    toks, step_ms = [], []
+    s = batch["tokens"].shape[1]
+    for i in range(MD_STEPS):
+        t0 = time.perf_counter()
+        nxt, lg, cache = decode(params, nxt, cache, torch.tensor(s + i))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        full.append(lg.full_tensor() if hasattr(lg, "full_tensor") else lg)
+        toks.append(nxt.full_tensor() if hasattr(nxt, "full_tensor")
+                    else nxt)
+    return full, torch.cat(toks, 1), pre_ms, step_ms
+
+
+def phase_multidevice(seed: int) -> dict:
+    """Phase 12: (a) qwen2-1.5b at full width as DTensors on a one-rank
+    NCCL mesh against the same steps on plain tensors; (b)
+    ``compressed_allreduce`` over that group; (c) the production dry run
+    in a subprocess (a fake world and NCCL cannot share the default
+    group)."""
+    out = {}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1)
+        # (a) the steps on the mesh, bit for bit against plain tensors
+        cfg = get_config("qwen2-1.5b").replace(activation_sharding=True,
+                                               use_flash=False)
+        model, params = _init(cfg, seed)
+        placed = distribute(params, param_shardings(params, mesh))
+        rng = np.random.default_rng(seed)
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (MD_PROMPTS, MD_PROMPT_LEN),
+            dtype=np.int32)).cuda()
+        s_max = MD_PROMPT_LEN + MD_STEPS
+        placed_tokens = distribute_tensor(tokens, mesh, list(placements_for(
+            batch_spec(mesh) + (None,), mesh)))
+        _zero_counts()
+        runs = {}
+        # in turns: plain, DTensor, DTensor, plain
+        for route, p, tok in (("plain", params, tokens),
+                              ("dtensor", placed, placed_tokens),
+                              ("dtensor_again", placed, placed_tokens),
+                              ("plain_again", params, tokens)):
+            runs[route] = _md_steps(model, p, {"tokens": tok}, s_max)
+        launches = _no_launches("phase 12 (a)")
+        plain = runs["plain"]
+        for route in ("dtensor", "dtensor_again", "plain_again"):
+            other = runs[route]
+            equal = [torch.equal(a, b) for a, b in zip(plain[0], other[0])]
+            if not all(equal) or not torch.equal(plain[1], other[1]):
+                diff = max(float((a.float() - b.float()).abs().max())
+                           for a, b in zip(plain[0], other[0]))
+                raise AssertionError(
+                    f"phase 12 (a): {route} logits differ from the plain "
+                    f"ones on a one-rank mesh: equal {equal}, max |diff| "
+                    f"{diff}")
+        out["qwen_one_rank"] = {
+            "prompts": MD_PROMPTS, "prompt_len": MD_PROMPT_LEN,
+            "steps": MD_STEPS, "logits_bit_equal": True,
+            "launches": launches,
+            **{f"{r}_prefill_ms": runs[r][2] for r in runs},
+            **{f"{r}_decode_ms_median": statistics.median(runs[r][3])
+               for r in runs}}
+        print(f"phase 12 (a): qwen2-1.5b on a one-rank NCCL mesh, "
+              f"{MD_PROMPTS} x {MD_PROMPT_LEN} prompts, {MD_STEPS} greedy "
+              f"steps: logits bit-equal to plain tensors; prefill ms "
+              + ", ".join(f"{r} {runs[r][2]}" for r in runs)
+              + "; decode step ms (median) "
+              + ", ".join(f"{r} {statistics.median(runs[r][3])}"
+                          for r in runs))
+        shapes = [(k, tuple(v.shape)) for k, v in tree_leaves_with_path(
+            params)]
+        out["qwen_one_rank"]["param_bytes"] = sum(
+            v.numel() * v.element_size() for v in tree_leaves(params))
+        del model, params, placed, placed_tokens, runs, plain, other
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the compressed all-reduce on qwen's full shapes, fp32
+        g = torch.Generator(device="cuda").manual_seed(seed + 12)
+        grads = {k: torch.randn(sh, generator=g, device="cuda")
+                 for k, sh in shapes}
+        error = {k: torch.randn(sh, generator=g, device="cuda") * 1e-3
+                 for k, sh in shapes}
+        times = []
+        for _ in range(MD_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reduced, new_err = compressed_allreduce(grads, error, mesh,
+                                                    "data")
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        for k in grads:
+            target = grads[k] + error[k]
+            q = target.to(torch.bfloat16).float()
+            if not (torch.equal(reduced[k], q)
+                    and torch.equal(new_err[k], target - q)):
+                raise AssertionError(f"phase 12 (b): {k} is not bf16(g + e)"
+                                     f" and its residual")
+        n = sum(x.numel() for x in grads.values())
+        out["compress"] = {"elements": n, "ms_median": statistics.median(
+            times), "ms": times, "bit_exact": True}
+        print(f"phase 12 (b): compressed_allreduce over a one-rank NCCL "
+              f"group, {n} fp32 gradients (qwen2-1.5b's shapes): bf16(g + "
+              f"e) and its residual bit-exact; ms {times}")
+        del grads, error, reduced, new_err
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # (c) the production dry run on fake 256/512-rank worlds
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "dryrun.json"
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                              "--dryrun-cells", str(path)],
+                             capture_output=True, text=True, timeout=600)
+        if run.returncode:
+            raise AssertionError(f"phase 12 (c): the dry run failed:\n"
+                                 f"{run.stdout[-3000:]}{run.stderr[-3000:]}")
+        cells = json.loads(path.read_text())
+    for rec in cells:
+        want = out["qwen_one_rank"]["param_bytes"] \
+            if rec["arch"] == "qwen2-1.5b" else _tree_bytes(rec["arch"])
+        if rec["status"] != "ok" or rec["param_bytes"] != want:
+            raise AssertionError(f"phase 12 (c): {rec}")
+        print(f"phase 12 (c): {rec['arch']} x {rec['shape']} on "
+              f"{rec['mesh']} ({rec['route']}): ok, param bytes "
+              f"{rec['param_bytes']}, per-device argument bytes "
+              f"{rec['argument_bytes']}, collective bytes "
+              f"{rec['collective_bytes']}"
+              + (f" (by kind at one period: "
+                 f"{rec['collective_kinds_one_period']})"
+                 if "collective_kinds_one_period" in rec else "")
+              + f", {rec['seconds']} s")
+    out["dryrun"] = {"cells": cells,
+                     "seconds": time.perf_counter() - t0}
+    return out
+
+
+def _tree_bytes(arch: str) -> int:
+    """A config's parameter bytes from its shape-only init."""
+    with FakeTensorMode():
+        params = build_model(get_config(arch), "cpu").init(0)
+    return sum(x.numel() * x.element_size() for x in tree_leaves(params))
+
+
+def dryrun_cells(path: str) -> None:
+    """Phase 12 (c), in its own process: each of ``DRYRUN_CELLS`` traced on
+    a fake world, whole or (``DRYRUN_ANALYZED``) through the 1- and
+    2-period points of ``analyze_cell``, whose extrapolated counts it
+    reports; per-device argument bytes from the placed full-depth step."""
+    from repro_torch.launch import analyze, dryrun, input_specs
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+    cells = []
+    for arch, shape, multi in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        if shape not in DRYRUN_ANALYZED:
+            rec = dryrun.run_cell(arch, shape, multi)
+            rec["route"] = "whole step traced"
+            rec["argument_bytes"] = rec["memory"]["argument_bytes"]
+        else:
+            cfg = get_config(arch)
+            cell = input_specs.shape_by_name(shape)
+            with fake_world(512 if multi else 256):
+                mesh = make_production_mesh(multi_pod=multi)
+                nbytes = _tree_bytes(arch)
+                fsdp = dryrun.fsdp_axes(mesh, nbytes, "tp")
+                n_micro = input_specs.train_microbatches(cfg, cell)
+                _, args = dryrun.build_step(cfg, cell, mesh, fsdp, "tp",
+                                            cell.global_batch, n_micro)
+                res = analyze.analyze_cell(cfg, cell, mesh, fsdp)
+            ex = res["extrapolated"]
+            rec = {"arch": arch, "shape": shape,
+                   "mesh": "2x16x16" if multi else "16x16",
+                   "kind": cell.kind, "status": "ok",
+                   "route": "analyze_cell, 1- and 2-period points",
+                   "param_bytes": nbytes, "fsdp": bool(fsdp),
+                   "flops": ex["flops"], "bytes_accessed": ex["bytes"],
+                   "collective_bytes": {"total": ex["coll_bytes"]},
+                   "collective_kinds_one_period": ex["collective_kinds"],
+                   "argument_bytes": dryrun._local_bytes(args),
+                   "points": res["points"], "n_micro": res["n_micro"]}
+        rec["seconds"] = time.perf_counter() - t0
+        cells.append(rec)
+        print(json.dumps(rec), flush=True)
+    Path(path).write_text(json.dumps(cells))
+
+
 def _init(cfg, seed):
     model = build_model(cfg, "cuda")
     t0 = time.perf_counter()
@@ -2500,7 +2753,13 @@ def _init(cfg, seed):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dryrun-cells", metavar="PATH",
+                    help="phase 12 (c)'s own process: trace the dry run's "
+                         "cells and write them to PATH")
     args = ap.parse_args()
+    if args.dryrun_cells:
+        dryrun_cells(args.dryrun_cells)
+        return 0
     # cuBLAS's deterministic workspace (read when its first handle is made)
     # for phase 10's bit-exact recovery under deterministic algorithms
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -2697,6 +2956,11 @@ def main() -> int:
 
     # phase 11: the encoder-decoder, served through the step functions
     encdec = phase_encdec(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 12: multi-device (a one-rank mesh, and the fake-world dry run)
+    multidevice = phase_multidevice(args.seed)
 
     # each row carries its kernel's launches on the path it was sized for
     # (the fp32 and synthetic-mask rows: the path whose heads they use);
@@ -2724,7 +2988,7 @@ def main() -> int:
     print(json.dumps({"kernels": rows, "spec": spec, "cluster": cluster,
                       "hybrid_handoff": handoff, "vlm": vlm,
                       "decoders": decoders, "train": train,
-                      "encdec": encdec}))
+                      "encdec": encdec, "multidevice": multidevice}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

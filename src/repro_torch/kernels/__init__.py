@@ -17,10 +17,13 @@ name.
 No kernel has a backward pass: on a CUDA tensor each wrapper refuses
 inputs that require grad (``refuse_autograd``) rather than return a result
 that silently cuts the gradient.  Training takes the plain path
-(``use_flash=False``), as the reference's does."""
+(``use_flash=False``), as the reference's does.  Nor does any wrapper take
+a DTensor (``refuse_dtensor``): a kernel sees one rank's shard only, so the
+sharded steps run the plain path too."""
 import torch
+from torch.distributed.tensor import DTensor
 
-__all__ = ["refuse_autograd"]
+__all__ = ["refuse_autograd", "refuse_dtensor"]
 
 
 def refuse_autograd(kernel: str, *tensors) -> None:
@@ -32,3 +35,12 @@ def refuse_autograd(kernel: str, *tensors) -> None:
             f"{kernel}: the CUDA kernel has no backward pass, and an input "
             f"requires grad; call it under torch.no_grad(), or train on "
             f"the plain path (use_flash=False)")
+
+
+def refuse_dtensor(kernel: str, *tensors) -> None:
+    """Raise on a DTensor input (None skipped): the kernel takes raw
+    pointers to whole tensors, and one rank's shard is not one."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(
+            f"{kernel}: the kernel takes plain tensors, not DTensors; the "
+            f"sharded steps run the plain path (use_flash=False)")

@@ -20,7 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .. import refuse_autograd
+from .. import refuse_autograd, refuse_dtensor
 from .ref import flash_attention_plain
 
 __all__ = ["flash_attention", "kernel_route", "decode_plan", "DecodePlan",
@@ -107,6 +107,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``kv_valid``: optional [B] int32 per-sequence count of valid kv
     positions (None = T).  ``q_offset``: absolute position of query row 0
     for the causal and window masks (``T - S`` = bottom-right alignment)."""
+    refuse_dtensor("flash_attention", q, k, v, kv_valid)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q [B,S,H,d], k/v [B,T,Hkv,d]; got {tuple(q.shape)}"
                          f", {tuple(k.shape)}, {tuple(v.shape)}")

@@ -19,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from .. import refuse_autograd
+from .. import refuse_autograd, refuse_dtensor
 from .ref import grouped_swiglu_plain
 
 __all__ = ["grouped_swiglu"]
@@ -64,6 +64,7 @@ def grouped_swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     prefix ``[0, load[e])`` of its slab, with zero rows after it (what
     ``priority_dispatch`` and ``gather_expert_inputs`` produce); the kernel
     skips the rows beyond and writes them as zeros.  None = every row."""
+    refuse_dtensor("grouped_swiglu", x, w_gate, w_up, w_down, load)
     if x.dim() != 3 or w_gate.dim() != 3 or w_gate.shape != w_up.shape \
             or w_down.dim() != 3:
         raise ValueError(f"x [E,C,D], w_gate/w_up [E,D,F], w_down [E,F,D]; "

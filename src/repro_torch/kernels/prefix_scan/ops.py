@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import refuse_autograd
+from .. import refuse_autograd, refuse_dtensor
 from .ref import prefix_scan_plain
 
 __all__ = ["prefix_scan", "ScanPlan", "scan_plan"]
@@ -47,6 +47,7 @@ def prefix_scan(x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum along the last axis: fp32 accumulation for
     fp32 and bf16 (each output rounded to x's type), 32-bit integer
     arithmetic that wraps for int32."""
+    refuse_dtensor("prefix_scan", x)
     if x.dim() < 1:
         raise ValueError("prefix_scan needs a tensor of rank >= 1")
     if x.device.type == "cpu":

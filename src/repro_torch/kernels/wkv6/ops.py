@@ -16,7 +16,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .. import refuse_autograd
+from .. import refuse_autograd, refuse_dtensor
 from .ref import CHUNK, wkv6_plain
 
 __all__ = ["wkv6", "HEAD_SIZES", "WkvPlan", "wkv6_plan"]
@@ -78,6 +78,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     """r, k, v: [B, T, H, N]; w: [B, T, H, N] decay in (0, 1); u: [H, N];
     s0: optional [B, H, N, N] initial state (zeros when omitted).  Returns
     (y [B, T, H, N] in r's type, s_end [B, H, N, N] fp32)."""
+    refuse_dtensor("wkv6", r, k, v, w, u, s0)
     if r.dim() != 4 or k.shape != r.shape or v.shape != r.shape \
             or w.shape != r.shape:
         raise ValueError(f"r, k, v, w must share one [B, T, H, N] shape; "

@@ -17,6 +17,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..configs.base import ModelConfig
+from ..sharding.dtensor import (flatten, heads_local, is_dtensor, put_rows,
+                               unflatten)
 from .layers import apply_rope, init_linear, init_rms_norm, linear, rms_norm
 
 __all__ = ["init_attention", "attention_fwd", "attention_decode", "KVCache",
@@ -66,9 +68,9 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
 def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = linear(p["wq"], x).reshape(b, s, cfg.num_heads, hd)
-    k = linear(p["wk"], x).reshape(b, s, cfg.num_kv_heads, hd)
-    v = linear(p["wv"], x).reshape(b, s, cfg.num_kv_heads, hd)
+    q = unflatten(linear(p["wq"], x), 2, (cfg.num_heads, hd))
+    k = unflatten(linear(p["wk"], x), 2, (cfg.num_kv_heads, hd))
+    v = unflatten(linear(p["wv"], x), 2, (cfg.num_kv_heads, hd))
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_norm(p["k_norm"], k, cfg.norm_eps)
@@ -80,7 +82,10 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
 def _sdpa(q, k, v, mask, scale):
     """q: [B,S,H,hd]; k,v: [B,T,Hkv,hd]; mask [B|1, S, T]; GQA by
     head-group reshape.  Logits in fp32, softmax weights cast to v's dtype
-    before PV, as in the reference."""
+    before PV, as in the reference.  Under a mesh it runs on each rank's
+    shard (``heads_local``)."""
+    if is_dtensor(q) or is_dtensor(k):
+        return heads_local(_sdpa, q, k, v, mask, scale)
     b, s, h, hd = q.shape
     hkv = k.shape[2]
     g = h // hkv
@@ -97,7 +102,11 @@ def _sdpa_chunked(q, k, v, scale, causal: bool, window: Optional[int]):
     chunks of 1024 and key/value chunks of 2048 with a running fp32 (max,
     denominator, accumulator), so memory is O(S d + chunk^2) instead of
     O(S T).  Masked logits are -1e30 and P stays fp32, as in the
-    reference's ``_sdpa_chunked``."""
+    reference's ``_sdpa_chunked``.  Under a mesh it runs on each rank's
+    shard (``heads_local``)."""
+    if is_dtensor(q) or is_dtensor(k):
+        return heads_local(lambda q, k, v, _, *a: _sdpa_chunked(q, k, v, *a),
+                           q, k, v, None, scale, causal, window)
     b, s, h, hd = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -182,7 +191,7 @@ def attention_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig,
                 mask = torch.ones((1, s, k.shape[1]), dtype=torch.bool,
                                   device=x.device)
         out = _sdpa(q, k, v, mask, scale)
-    y = linear(p["wo"], out.reshape(b, s, -1))
+    y = linear(p["wo"], flatten(out, 2))
     if return_kv:
         return y, (k, v)
     return y
@@ -230,11 +239,10 @@ def attention_decode(p: dict, x: torch.Tensor, cache: KVCache, pos,
     pos_vec = _pos_vec(pos, b, x.device)
     q, k_new, v_new = _project_qkv(p, x, cfg, pos_vec[:, None])
     write_idx = pos_vec % s_max
-    bidx = torch.arange(b, device=x.device)
-    cache.k[bidx, write_idx] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[bidx, write_idx] = v_new[:, 0].to(cache.v.dtype)
+    put_rows(cache.k, write_idx, k_new[:, 0].to(cache.k.dtype))
+    put_rows(cache.v, write_idx, v_new[:, 0].to(cache.v.dtype))
     out = _attend_decode(q, cache.k, cache.v, pos_vec, cfg)
-    y = linear(p["wo"], out.reshape(b, 1, -1))
+    y = linear(p["wo"], flatten(out, 2))
     return y, cache
 
 
@@ -263,7 +271,7 @@ def attention_decode_paged(p: dict, x: torch.Tensor, cache: PagedKVCache,
     k_log = cache.k[table.long()].reshape(b, cap, *cache.k.shape[2:])
     v_log = cache.v[table.long()].reshape(b, cap, *cache.v.shape[2:])
     out = _attend_decode(q, k_log, v_log, pos_vec, cfg)
-    y = linear(p["wo"], out.reshape(b, 1, -1))
+    y = linear(p["wo"], flatten(out, 2))
     return y, cache
 
 
@@ -300,7 +308,7 @@ def attention_verify_paged(p: dict, x: torch.Tensor, cache: PagedKVCache,
     if cfg.sliding_window is not None:
         valid &= r - j < cfg.sliding_window
     out = _sdpa(q, k_log, v_log, valid, hd ** -0.5)
-    y = linear(p["wo"], out.reshape(b, c, -1))
+    y = linear(p["wo"], flatten(out, 2))
     return y, cache
 
 
@@ -333,7 +341,7 @@ def attention_prefill_chunk_paged(p: dict, x: torch.Tensor,
     if cfg.sliding_window is not None:
         valid &= rows[None, :, None] - j < cfg.sliding_window
     out = _sdpa(q, k_log, v_log, valid, hd ** -0.5)
-    y = linear(p["wo"], out.reshape(b, c, -1))
+    y = linear(p["wo"], flatten(out, 2))
     return y, cache
 
 

@@ -34,6 +34,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..sharding.dtensor import placed_like
 from .attention import (KVCache, attention_decode, attention_fwd,
                         init_attention, init_kv_cache)
 from .layers import (dtype_of, embed, init_embedding, init_linear, init_mlp,
@@ -177,11 +178,15 @@ def encdec_prefill(params: dict, batch: dict, cfg: ModelConfig,
     for i, p in enumerate(_layers(params["dec_blocks"], n)):
         x, ((k, v), (ck, cv)) = _dec_block_fwd(p, x, enc_out, cfg,
                                                positions, return_kv=True)
+        if i == 0:      # under a mesh, the caches are placed as their K/V
+            self_k, self_v = placed_like(self_k, k, 1), placed_like(self_v,
+                                                                    v, 1)
         self_k[i, :, :w] = k[:, s - w:s].to(self_k.dtype)
         self_v[i, :, :w] = v[:, s - w:s].to(self_v.dtype)
         if cross_k is None:
-            cross_k = torch.empty((n,) + tuple(ck.shape), dtype=ck.dtype,
-                                  device=x.device)
+            cross_k = placed_like(torch.empty(
+                (n,) + tuple(ck.shape), dtype=ck.dtype, device=x.device),
+                ck, 1)
             cross_v = torch.empty_like(cross_k)
         cross_k[i], cross_v[i] = ck, cv
     x = rms_norm(params["ln_f"], x, cfg.norm_eps)

@@ -18,6 +18,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..sharding.dtensor import placed_like
 from .attention import (KVCache, PagedKVCache, attention_decode,
                         attention_decode_paged, attention_fwd,
                         init_attention, init_kv_cache, init_paged_kv_cache)
@@ -187,6 +188,12 @@ def hybrid_prefill(params: dict, batch: dict, cfg: ModelConfig,
     for i in range(_n_superblocks(cfg)):
         x, (k, v), st, _ = _superblock_fwd(_layer(params["superblocks"], i),
                                            x, cfg, positions)
+        if i == 0:      # under a mesh, the cache is placed as what it holds
+            cache = HybridCache(
+                KVCache(placed_like(cache.kv.k, k, 1),
+                        placed_like(cache.kv.v, v, 1)),
+                placed_like(cache.conv, st.conv, 1),
+                placed_like(cache.h, st.h, 1))
         # the prompt K/V tail, ring-aligned: position p at slot p % cap
         tail_k, tail_v = k[:, s - w:s], v[:, s - w:s]
         if w == cap and s % cap:

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..sharding.dtensor import flatten, is_dtensor, lookup, unflatten
 
 __all__ = ["dtype_of", "init_linear", "linear", "init_rms_norm", "rms_norm",
            "init_group_norm", "group_norm", "init_embedding", "embed",
@@ -73,12 +74,11 @@ def group_norm(p: dict, x: torch.Tensor, groups: int,
                eps: float = 1e-5) -> torch.Tensor:
     """GroupNorm over the last dim split into ``groups`` groups: statistics
     in fp32, cast back to x's type before the scale and bias."""
-    shape = x.shape
-    xf = x.float().reshape(*shape[:-1], groups, shape[-1] // groups)
+    xf = unflatten(x.float(), x.ndim - 1, (groups, x.shape[-1] // groups))
     mean = xf.mean(-1, keepdim=True)
     var = xf.var(-1, unbiased=False, keepdim=True)
     xf = (xf - mean) * torch.rsqrt(var + eps)
-    return xf.reshape(shape).to(x.dtype) * p["scale"] + p["bias"]
+    return flatten(xf, -2).to(x.dtype) * p["scale"] + p["bias"]
 
 
 def init_embedding(gen: torch.Generator, vocab: int, d: int,
@@ -95,6 +95,8 @@ def embed(p: dict, tokens: torch.Tensor,
     if onehot:
         oh = F.one_hot(tokens.long(), p["table"].shape[0])
         return oh.to(p["table"].dtype) @ p["table"]
+    if is_dtensor(p["table"]):
+        return lookup(tokens, p["table"])
     return p["table"][tokens]
 
 

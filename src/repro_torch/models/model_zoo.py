@@ -15,6 +15,7 @@ entropy plus the MoE aux loss.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
@@ -23,6 +24,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..sharding.dtensor import is_dtensor, on_mesh
 from . import encdec, hybrid, rwkv_lm, transformer
 from .transformer import LMOutputs
 
@@ -77,10 +79,24 @@ class Model:
         return lm_loss(self, params, batch)
 
 
+#: the Model's steps, each run under DTensor's implicit replication
+_STEPS = ("forward", "prefill", "decode_step", "decode_step_paged",
+          "prefill_chunk_paged", "verify_paged")
+
+
 def build_model(cfg: ModelConfig, device=None) -> Model:
     """``device`` None means CUDA (raises without a CUDA device); pass
-    ``"cpu"`` to run on the CPU."""
-    dev = resolve_device(device)
+    ``"cpu"`` to run on the CPU.  Every step runs as well on parameters
+    placed on a mesh (DTensors, ``sharding.distribute``): the plain tensors
+    a step makes for itself are then taken as replicated
+    (``sharding.dtensor``)."""
+    model = _build(cfg, resolve_device(device))
+    return dataclasses.replace(model, **{
+        f: on_mesh(getattr(model, f)) for f in _STEPS
+        if getattr(model, f) is not None})
+
+
+def _build(cfg: ModelConfig, dev: torch.device) -> Model:
     if cfg.family == "ssm":
         return Model(
             cfg=cfg,
@@ -173,8 +189,7 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor,
     if not vocab_chunk:
         logits = logits.float()
         logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels).squeeze(-1)
-        return (logz - gold).mean()
+        return (logz - _gold(logits, labels)).mean()
     v = logits.shape[-1]
     pad = (-v) % vocab_chunk
     if pad:  # pad vocab with -inf-like logits (no mass)
@@ -190,10 +205,20 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor,
         l = l * torch.exp(m - m2) + torch.exp(ch - m2[..., None]).sum(-1)
         m = m2
     logz = m + torch.log(l)
-    gold = torch.gather(logits, -1, labels).squeeze(-1).float()
-    return (logz - gold).mean()
+    return (logz - _gold(logits, labels).float()).mean()
 
 
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The labels' logits: a gather, or on a DTensor (whose vocab dim may be
+    sharded, where DTensor's gather fails) the sum of the one matching
+    entry a row, the same value."""
+    if not is_dtensor(logits):
+        return torch.gather(logits, -1, labels).squeeze(-1)
+    hit = torch.arange(logits.shape[-1], device=labels.device) == labels
+    return torch.where(hit, logits, 0).sum(-1)
+
+
+@on_mesh
 def lm_loss(model: Model, params: dict, batch: dict
             ) -> tuple[torch.Tensor, dict]:
     """Cross-entropy on next-token labels + MoE auxiliary losses.

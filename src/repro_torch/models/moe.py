@@ -22,6 +22,7 @@ from ..core.device.moe_balance import (combine_expert_outputs,
                                        gather_expert_inputs,
                                        priority_dispatch, route_topk)
 from ..kernels.moe_gmm import grouped_swiglu
+from ..sharding.dtensor import like, replicated_local
 from .layers import init_linear
 
 __all__ = ["init_moe", "moe_fwd", "MoEStats", "moe_capacity"]
@@ -83,19 +84,25 @@ def moe_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig,
     # Droppy: the configured capacity, clamped to the same T bound.
     cap = t if cfg.moe_dropless else min(moe_capacity(cfg, t), t)
 
-    logits = xt.float() @ p["router"]["w"]
+    # Under a mesh the routing, the dispatch (sort, searchsorted, scatter:
+    # no DTensor sharding strategy) and the combine run on all-gathered
+    # plain tensors; the dispatch buffer rejoins the mesh replicated, and
+    # the expert FFN runs against the sharded expert weights.
+    logits = replicated_local(xt.float() @ p["router"]["w"])
     expert_idx, gate, probs = route_topk(logits, k)
     plan = priority_dispatch(expert_idx, gate, probs, num_experts=e,
                              capacity=cap, policy=cfg.dispatch_policy,
                              resteal=cfg.dispatch_resteal)
-    buf = gather_expert_inputs(xt, plan, k)          # [E, C, D]
-    buf = _expert_ffn(p, buf, use_kernel, plan.load)
-    y = combine_expert_outputs(buf, plan, t, k).to(x.dtype)
+    buf = like(gather_expert_inputs(replicated_local(xt), plan, k), x)
+    buf = _expert_ffn(p, buf, use_kernel, plan.load)   # [E, C, D]
+    y = like(combine_expert_outputs(replicated_local(buf), plan, t, k), x
+             ).to(x.dtype)
 
     # Switch-style load-balance aux loss: E * Σ_e f_e · P_e.
     me = probs.mean(0)                                # mean router prob [E]
     ce = plan.load.float() / torch.clamp(plan.load.sum(), min=1)
     aux = e * torch.sum(me * ce)
-    stats = MoEStats(load=plan.load, dropped_mass=plan.dropped_mass,
-                     aux_loss=aux)
+    stats = MoEStats(load=like(plan.load, x),
+                     dropped_mass=like(plan.dropped_mass, x),
+                     aux_loss=like(aux, x))
     return y.reshape(orig_shape), stats

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels.wkv6 import wkv6
+from ..sharding.dtensor import flatten, shard_map, unflatten
 from .layers import group_norm, init_group_norm, init_linear, linear
 
 __all__ = ["init_rwkv_time_mix", "rwkv_time_mix", "rwkv_time_mix_decode",
@@ -92,18 +93,18 @@ def _rwkv_project(p: dict, x: torch.Tensor, shifted: torch.Tensor,
     h = d // n
     xx = shifted - x
     xxx = x + xx * p["mu_x"]
-    k5 = torch.tanh(xxx @ p["tm_w1"]).reshape(b, t, 5, -1)
+    k5 = unflatten(torch.tanh(xxx @ p["tm_w1"]), 2, (5, -1))
     offs = torch.einsum("btfr,frd->btfd", k5, p["tm_w2"])
     mixed = x[:, :, None] + xx[:, :, None] * (p["maa"] + offs)  # [B,T,5,D]
     xw, xk, xv, xr, xg = mixed.unbind(2)
     # decay in fp32: w = exp(-exp(w0 + lora)), in (0, 1)
     dlt = torch.tanh(xw @ p["td_w1"]) @ p["td_w2"]
     w = torch.exp(-torch.exp(p["w0"] + dlt.float()))             # [B,T,D]
-    r = linear(p["wr"], xr).reshape(b, t, h, n)
-    k = linear(p["wk"], xk).reshape(b, t, h, n)
-    v = linear(p["wv"], xv).reshape(b, t, h, n)
+    r = unflatten(linear(p["wr"], xr), 2, (h, n))
+    k = unflatten(linear(p["wk"], xk), 2, (h, n))
+    v = unflatten(linear(p["wv"], xv), 2, (h, n))
     g = F.silu(linear(p["wg"], xg))
-    return r, k, v, g, w.reshape(b, t, h, n)
+    return r, k, v, g, unflatten(w, 2, (h, n))
 
 
 def _wkv_chunk(r, k, v, w, u, s0):
@@ -135,6 +136,24 @@ def _wkv_chunk(r, k, v, w, u, s0):
     return y, s_end
 
 
+def _wkv_chunked(r, k, v, w, u, s0, chunk: int):
+    """The WKV recurrence over [B, T, H, N] in chunks of ``chunk`` steps:
+    (y [B, T, H, N] fp32, s_end)."""
+    t = r.shape[1]
+    c = min(chunk, t)
+    pad = (-t) % c
+    if pad:
+        # pad with decay-1 / zero-input steps (no-ops for the recurrence)
+        r, k, v = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (r, k, v))
+        w = F.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
+    s_end, ys = s0, []
+    for i in range(0, t + pad, c):
+        yc, s_end = _wkv_chunk(r[:, i:i + c], k[:, i:i + c], v[:, i:i + c],
+                               w[:, i:i + c], u, s_end)
+        ys.append(yc)
+    return torch.cat(ys, dim=1)[:, :t], s_end
+
+
 def rwkv_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
                   state: Optional[tuple] = None):
     """Train/prefill path.  state=(shift_prev [B,D], s0 [B,H,N,N]) or None.
@@ -156,38 +175,39 @@ def rwkv_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
         y, s_end = wkv6(r, k, v, w, p["u"], s0)
         y = y.reshape(b, t, d)
     else:
-        c = min(cfg.ssm_chunk, t)
-        pad = (-t) % c
-        if pad:
-            # pad with decay-1 / zero-input steps (no-ops for the recurrence)
-            r, k, v = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (r, k, v))
-            w = F.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
-        s_end, ys = s0, []
-        for i in range(0, t + pad, c):
-            yc, s_end = _wkv_chunk(r[:, i:i + c], k[:, i:i + c],
-                                   v[:, i:i + c], w[:, i:i + c], p["u"],
-                                   s_end)
-            ys.append(yc)
-        y = torch.cat(ys, dim=1)[:, :t].reshape(b, t, d)
+        # under a mesh, on each rank's rows and heads (``shard_map``)
+        bh = (0, 2)
+        y, s_end = shard_map(
+            lambda r, k, v, w, u, s0: _wkv_chunked(r, k, v, w, u, s0,
+                                                   cfg.ssm_chunk),
+            (r, k, v, w, p["u"], s0), (bh, bh, bh, bh, (None, 0), (0, 1)),
+            (bh, (0, 1)), h)
+        y = flatten(y, 2)
     y = group_norm(p["ln_x"], y.to(x.dtype), h, cfg.norm_eps) * g
     y = linear(p["wo"], y)
     return y, (x[:, -1], s_end)
+
+
+def _wkv_step(r, k, v, w, u, s):
+    """One decode step of the recurrence: r, k, v, w [B, 1, H, N], s [B, H,
+    N, N] -> (y [B, 1, H, N] fp32, the next state)."""
+    rf, kf, vf, wf = (a[:, 0].float() for a in (r, k, v, w))
+    kv = torch.einsum("bhk,bhv->bhkv", kf, vf)
+    y = torch.einsum("bhk,bhkv->bhv", rf, s + u[None, :, :, None] * kv)
+    return y[:, None], wf[..., None] * s + kv
 
 
 def rwkv_time_mix_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
                          state: tuple):
     """One-token decode.  x: [B, 1, D]; state=(shift_prev, s).  Returns
     (y, (last_x, s_next)); the state passed in is not modified."""
-    b, _, d = x.shape
-    n = cfg.rwkv_head_size
-    h = d // n
+    h = x.shape[-1] // cfg.rwkv_head_size
     prev_x, s = state
     r, k, v, g, w = _rwkv_project(p, x, prev_x[:, None], cfg)
-    rf, kf, vf, wf = (a[:, 0].float() for a in (r, k, v, w))
-    kv = torch.einsum("bhk,bhv->bhkv", kf, vf)
-    y = torch.einsum("bhk,bhkv->bhv", rf, s + p["u"][None, :, :, None] * kv)
-    s = wf[..., None] * s + kv
-    y = y.reshape(b, 1, d)
+    bh = (0, 2)
+    y, s = shard_map(_wkv_step, (r, k, v, w, p["u"], s),
+                     (bh, bh, bh, bh, (None, 0), (0, 1)), (bh, (0, 1)), h)
+    y = flatten(y, 2)
     y = group_norm(p["ln_x"], y.to(x.dtype), h, cfg.norm_eps) * g
     return linear(p["wo"], y), (x[:, -1], s)
 
@@ -306,26 +326,62 @@ def _mamba_ssm_inputs(p: dict, xc: torch.Tensor, cfg: ModelConfig):
     return decay, inp, cmat
 
 
+#: the Mamba layer's weights between its two projections, flat for
+#: ``shard_map`` (small beside in_proj and out_proj, so replicated there)
+_MIX_LEAVES = (("conv_w",), ("conv_b",), ("x_proj", "w"), ("dt_proj", "w"),
+               ("dt_proj", "b"), ("a_log",), ("d_skip",))
+
+
+def _mix_weights(p: dict) -> list:
+    return [p[k[0]] if len(k) == 1 else p[k[0]][k[1]] for k in _MIX_LEAVES]
+
+
+def _mix_params(ws) -> dict:
+    p = {}
+    for k, w in zip(_MIX_LEAVES, ws):
+        if len(k) == 1:
+            p[k[0]] = w
+        else:
+            p.setdefault(k[0], {})[k[1]] = w
+    return p
+
+
+def _by_rows(fn, tensors, weights, n_out: int):
+    """``fn`` on each rank's batch rows (the weights whole): under a mesh,
+    the conv, the selective scan and their projections between in_proj
+    and out_proj see every channel, which x_proj mixes."""
+    rows = (0, None)
+    return shard_map(fn, (*tensors, *weights),
+                     (rows,) * len(tensors) + ((None, None),) * len(weights),
+                     (rows,) * n_out, 1)
+
+
 def mamba_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig,
               state: Optional[MambaState] = None):
     """Train/prefill.  x: [B, T, D] -> (y [B, T, D], MambaState)."""
     b, t, _ = x.shape
     di, ds, dc = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
-    xi, z = linear(p["in_proj"], x).chunk(2, dim=-1)
-    # depthwise causal conv1d over time
+    u = linear(p["in_proj"], x)
     prev = state.conv if state is not None else torch.zeros(
-        b, dc - 1, di, dtype=xi.dtype, device=x.device)
-    xpad = torch.cat([prev, xi], dim=1)
-    conv_state = xpad[:, -(dc - 1):] if dc > 1 else prev
-    xc = sum(xpad[:, i:i + t] * p["conv_w"][i] for i in range(dc))
-    xc = F.silu(xc + p["conv_b"])
-    decay, inp, cmat = _mamba_ssm_inputs(p, xc, cfg)
+        b, dc - 1, di, dtype=u.dtype, device=x.device)
     h0 = state.h if state is not None else torch.zeros(
         b, di, ds, dtype=torch.float32, device=x.device)
-    hs, h_end = _mamba_scan_chunked(decay, inp, h0, cfg.ssm_chunk)
-    y = torch.einsum("btds,bts->btd", hs, cmat)
-    y = (y + xc.float() * p["d_skip"]).to(x.dtype)
-    y = y * F.silu(z)
+
+    def mix(u, prev, h0, *ws):
+        q = _mix_params(ws)
+        xi, z = u.chunk(2, dim=-1)
+        # depthwise causal conv1d over time
+        xpad = torch.cat([prev, xi], dim=1)
+        conv_state = xpad[:, -(dc - 1):] if dc > 1 else prev
+        xc = sum(xpad[:, i:i + t] * q["conv_w"][i] for i in range(dc))
+        xc = F.silu(xc + q["conv_b"])
+        decay, inp, cmat = _mamba_ssm_inputs(q, xc, cfg)
+        hs, h_end = _mamba_scan_chunked(decay, inp, h0, cfg.ssm_chunk)
+        y = torch.einsum("btds,bts->btd", hs, cmat)
+        y = (y + xc.float() * q["d_skip"]).to(x.dtype)
+        return y * F.silu(z), conv_state, h_end
+
+    y, conv_state, h_end = _by_rows(mix, (u, prev, h0), _mix_weights(p), 3)
     return linear(p["out_proj"], y), MambaState(conv=conv_state, h=h_end)
 
 
@@ -333,13 +389,18 @@ def mamba_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
                  state: MambaState):
     """One-token decode; x: [B, 1, D].  Returns (y, the next MambaState);
     the state passed in is not modified."""
-    xi, z = linear(p["in_proj"], x).chunk(2, dim=-1)          # [B, 1, di]
-    xfull = torch.cat([state.conv, xi], dim=1)                # [B, dc, di]
-    xc = F.silu(torch.einsum("bcd,cd->bd", xfull, p["conv_w"])
-                + p["conv_b"])                                # [B, di]
-    decay, inp, cmat = _mamba_ssm_inputs(p, xc, cfg)
-    h = decay * state.h + inp
-    y = torch.einsum("bds,bs->bd", h, cmat)
-    y = (y + xc.float() * p["d_skip"]).to(x.dtype)
-    y = y[:, None] * F.silu(z)
-    return linear(p["out_proj"], y), MambaState(conv=xfull[:, 1:], h=h)
+    def mix(u, conv, h, *ws):
+        q = _mix_params(ws)
+        xi, z = u.chunk(2, dim=-1)                            # [B, 1, di]
+        xfull = torch.cat([conv, xi], dim=1)                  # [B, dc, di]
+        xc = F.silu(torch.einsum("bcd,cd->bd", xfull, q["conv_w"])
+                    + q["conv_b"])                            # [B, di]
+        decay, inp, cmat = _mamba_ssm_inputs(q, xc, cfg)
+        h = decay * h + inp
+        y = torch.einsum("bds,bs->bd", h, cmat)
+        y = (y + xc.float() * q["d_skip"]).to(x.dtype)
+        return y[:, None] * F.silu(z), xfull[:, 1:], h
+
+    y, conv, h = _by_rows(mix, (linear(p["in_proj"], x), state.conv,
+                                state.h), _mix_weights(p), 3)
+    return linear(p["out_proj"], y), MambaState(conv=conv, h=h)

@@ -17,9 +17,11 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..sharding.dtensor import is_dtensor, placed_like
 from .attention import (KVCache, PagedKVCache, attention_decode,
                         attention_decode_paged, attention_fwd,
                         attention_prefill_chunk_paged,
@@ -47,11 +49,26 @@ def _is_moe(cfg: ModelConfig) -> bool:
 
 
 def _pin(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The reference pins activations to a batch-sharded layout at layer
-    boundaries under a mesh; on one device, as the reference without a
-    mesh, it is the identity."""
-    del cfg
-    return x
+    """Keep activations batch-sharded at layer boundaries (on a DTensor
+    whose mesh has a 'data' axis): ``Shard(0)`` on 'data', replicated on
+    the other axes, as the reference's ``with_sharding_constraint(x,
+    P('data', ...))``.  MoE trunks with ``activation_sharding_moe_model``
+    also shard the hidden dim over 'model'.  Anything else, a plain tensor
+    included, is returned as it is."""
+    if not cfg.activation_sharding or not is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    if "data" not in names:
+        return x
+    pl = [Replicate()] * mesh.ndim
+    pl[names.index("data")] = Shard(0)
+    if cfg.num_experts and x.ndim >= 3 \
+            and cfg.activation_sharding_moe_model:
+        if "model" not in names:
+            return x
+        pl[names.index("model")] = Shard(x.ndim - 1)
+    return x.redistribute(mesh, pl)
 
 
 def _remat(cfg: ModelConfig) -> bool:
@@ -251,6 +268,9 @@ def lm_prefill(params: dict, batch: dict, cfg: ModelConfig,
     for i in range(cfg.num_layers):
         x, (k, v), _ = _block_fwd(_layer(params["blocks"], i), x, cfg,
                                   positions, None)
+        if i == 0:      # under a mesh, the cache is placed as its K/V are
+            cache = KVCache(placed_like(cache.k, k, 1),
+                            placed_like(cache.v, v, 1))
         # Place the prompt K/V tail into a cache of capacity s_max;
         # ring-align so that position p sits at slot p % s_max (what decode
         # expects).

@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..sharding.dtensor import is_dtensor
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["AdamWState", "adamw_init", "adamw_update", "global_norm"]
@@ -33,18 +34,27 @@ def _slices(n: int):
     return ((i, min(i + _SLICE, n)) for i in range(0, n, _SLICE))
 
 
+def zeros32(p: torch.Tensor) -> torch.Tensor:
+    """fp32 zeros of ``p``'s shape, placed as ``p`` is on a mesh."""
+    if is_dtensor(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def adamw_init(params) -> AdamWState:
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     device = tree_leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
-                      m=tree_map(zeros, params), v=tree_map(zeros, params))
+                      m=tree_map(zeros32, params),
+                      v=tree_map(zeros32, params))
 
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's sum of squares, in fp32."""
     total = 0
     for x in tree_leaves(tree):
+        if is_dtensor(x):       # flat slices of a shard would reshard it
+            total = total + torch.sum(torch.square(x.detach().float()))
+            continue
         flat = x.detach().reshape(-1)
         for a, b in _slices(flat.numel()):
             total = total + torch.sum(torch.square(flat[a:b].float()))
@@ -63,19 +73,25 @@ def adamw_update(grads, state: AdamWState, params, lr, *,
     bc1 = 1.0 - b1 ** step.float()
     bc2 = 1.0 - b2 ** step.float()
 
+    def upd_slice(gs, ms, vs, ps):
+        ms.mul_(b1).add_((1 - b1) * gs)
+        vs.mul_(b2).add_((1 - b2) * gs * gs)
+        mhat = ms / bc1
+        vhat = vs / bc2
+        pf = ps.float()
+        delta = mhat / (torch.sqrt(vhat) + eps) + weight_decay * pf
+        ps.copy_(pf - lr * delta)
+
     def upd(g, m, v, p):
+        if is_dtensor(p):
+            # whole leaves: moments placed otherwise than the parameter
+            # (ZeRO-1) are met by DTensor's redistributes in the writes
+            upd_slice(g.float() * scale, m, v, p)
+            return
         g = g.reshape(-1)
         m, v, p = (t.view(-1) for t in (m, v, p))
         for a, b in _slices(p.numel()):
-            gs = g[a:b].float() * scale
-            ms, vs, ps = m[a:b], v[a:b], p[a:b]
-            ms.mul_(b1).add_((1 - b1) * gs)
-            vs.mul_(b2).add_((1 - b2) * gs * gs)
-            mhat = ms / bc1
-            vhat = vs / bc2
-            pf = ps.float()
-            delta = mhat / (torch.sqrt(vhat) + eps) + weight_decay * pf
-            ps.copy_(pf - lr * delta)
+            upd_slice(g[a:b].float() * scale, m[a:b], v[a:b], p[a:b])
 
     tree_map(upd, grads, state.m, state.v, params)
     return params, AdamWState(step, state.m, state.v), {"grad_norm": gnorm}

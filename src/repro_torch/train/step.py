@@ -13,7 +13,8 @@ from typing import Callable, Optional
 import torch
 
 from ..models.model_zoo import Model
-from ..optim.adamw import AdamWState, adamw_update
+from ..optim.adamw import AdamWState, adamw_update, zeros32
+from ..sharding.dtensor import is_dtensor, on_mesh, split_even
 from ..tree import tree_leaves_with_path, tree_map, tree_map_with_path
 
 __all__ = ["make_train_step", "make_prefill_step", "make_decode_step"]
@@ -33,6 +34,17 @@ def _loss_and_grads(model: Model, params: dict, batch: dict):
                for k, p, g in zip(paths, leaves, grads)}
     return ({k: v.detach() for k, v in metrics.items()},
             tree_map_with_path(lambda k, _: by_path[k], live))
+
+
+def _microbatch(x: torch.Tensor, n: int, i: int) -> torch.Tensor:
+    """Rows ``i * B/n .. (i+1) * B/n - 1`` of ``x``.  Under a mesh those
+    rows sit on a few ranks: they are gathered and then sharded as ``x``
+    is."""
+    rows = x.shape[0] // n
+    if is_dtensor(x):
+        return x[i * rows:(i + 1) * rows].redistribute(x.device_mesh,
+                                                        x.placements)
+    return x.reshape((n, rows) + x.shape[1:])[i]
 
 
 def make_train_step(model: Model, *, num_microbatches: int = 1,
@@ -57,12 +69,10 @@ def make_train_step(model: Model, *, num_microbatches: int = 1,
                 if x.shape[0] % n:
                     raise ValueError(f"batch[{k!r}] has {x.shape[0]} rows, "
                                      f"not a multiple of {n} microbatches")
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = tree_map(zeros32, params)
             mets = []
             for i in range(n):
-                mb = {k: x.reshape((n, x.shape[0] // n) + x.shape[1:])[i]
-                      for k, x in batch.items()}
+                mb = {k: _microbatch(x, n, i) for k, x in batch.items()}
                 met, g = _loss_and_grads(model, params, mb)
                 with torch.no_grad():
                     tree_map(lambda a, gg: a.add_(gg.float() / n), grads, g)
@@ -75,7 +85,7 @@ def make_train_step(model: Model, *, num_microbatches: int = 1,
             clip_norm=clip_norm, b1=b1, b2=b2)
         return params, opt_state, {**metrics, **om}
 
-    return train_step
+    return on_mesh(train_step)
 
 
 def make_prefill_step(model: Model, s_max: Optional[int] = None) -> Callable:
@@ -100,7 +110,9 @@ def make_decode_step(model: Model, *, sample: bool = False,
             probs = torch.softmax(logits[:, -1].float() / temperature, -1)
             nxt = torch.multinomial(probs, 1, generator=rng)
         else:
-            nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            # under a mesh, over the whole vocab: its shards gathered
+            nxt = torch.argmax(split_even(logits[:, -1], -1, 1),
+                               dim=-1)[:, None]
         return nxt.int(), logits, cache
 
     return decode_step

@@ -30,8 +30,8 @@ SERVE = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
 
 #: modules that must be among those scanned (the MoE slice's, the RWKV
 #: slice's with the last two kernels, speculative decoding's, the
-#: scheduler and live cluster's, the hybrid's, training's and the
-#: encoder-decoder's)
+#: scheduler and live cluster's, the hybrid's, training's, the
+#: encoder-decoder's and multi-device's)
 REQUIRED = ("repro_torch.serving.speculative",
             "repro_torch.core.scheduler", "repro_torch.analysis.schedlint",
             "repro_torch.core.device.weighted_partition",
@@ -50,7 +50,12 @@ REQUIRED = ("repro_torch.serving.speculative",
             "repro_torch.data.pipeline", "repro_torch.data.packing",
             "repro_torch.launch.train", "repro_torch.models.encdec",
             "repro_torch.configs.seamless_m4t_medium",
-            "repro_torch.launch.input_specs") + tuple(
+            "repro_torch.launch.input_specs", "repro_torch.sharding",
+            "repro_torch.sharding.partition", "repro_torch.sharding.dtensor",
+            "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+            "repro_torch.launch.analyze", "repro_torch.launch.hlo_stats",
+            "repro_torch.launch.hillclimb", "repro_torch.optim.compress"
+            ) + tuple(
     f"repro_torch.kernels.{k}{m}" for k in ("wkv6", "prefix_scan")
     for m in ("", ".ops", ".ref", ".build"))
 
