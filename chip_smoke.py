@@ -237,6 +237,21 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    ``param_bytes`` the tree's bytes; per-device argument bytes, collective
    bytes by kind and seconds printed.
 
+13. the examples (``examples_torch/``, the counterparts of ``examples/``):
+   (b) right after main path 1's phases, on its full-width qwen2-1.5b
+   (bf16, flash, paged), the serving examples' own functions in-process
+   (``serve_requests.serve``: 6 interactive and 10 batch requests and a
+   cancelled one on one engine; ``serve_cluster.serve``: two replicas
+   stealing half the work, 14 requests and a cancelled one): their asserts
+   hold, ``alloc.check()`` on every engine, flash launched once a layer a
+   call, the counts set to 0 just before each and read just after; (a)
+   after phase 12, every example as a user runs it, in its own process on
+   the card by default: quickstart, serve_requests, serve_cluster,
+   compose_workloads --spec, train_lm --hundred-m (100 steps of the ~131M
+   model: d_model 768, 12 layers) and again with --steps 120 on the same checkpoint directory
+   (it must print "resumed from step 100" and reach step 119 with a
+   finite loss); each exits 0; its wall seconds and last lines printed.
+
 Every kernel launch of a path is counted by its wrapper, with the counts
 set to 0 just before the path and read just after, and held per engine
 call: each prefill and decode call launches a kernel once for every layer
@@ -250,12 +265,13 @@ calls launched.
 Two lines before the last is the JSON record of the kernels, of the
 speculative phases (``spec``), of the cluster phases (``cluster``), of the
 image prefix (``vlm``), of main paths 5-9 (``decoders``), of training
-(``train``), of the encoder-decoder (``encdec``) and of phase 12
-(``multidevice``);
+(``train``), of the encoder-decoder (``encdec``), of phase 12
+(``multidevice``) and of phase 13 (``examples``);
 flash attention's rows at qwen2-1.5b's heads count the cluster runs'
 launches too (the image-prefix runs are added to no row); every row lists
 its kernel's launches on each path in ``launches_by_path`` (the trained
-weights' serving run under its own name).  Then the
+weights' serving run and the examples' full-width runs, ``example
+serve_requests`` and ``example serve_cluster``, under their own names).  Then the
 card's name and power limit; the last is ``{"ok": true, "device":
 {...}}``.
 """
@@ -263,6 +279,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import importlib.util
 import json
 import math
 import os
@@ -458,6 +475,10 @@ DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", False),
                 ("qwen2-1.5b", "decode_32k", False),
                 ("mixtral-8x22b", "decode_32k", True))
 DRYRUN_ANALYZED = ("train_4k", "prefill_32k")
+#: phase 13, the examples (``examples_torch/``): their directory, and the
+#: training example's steps (its default) and the resumed run's
+EXAMPLES = ROOT / "examples_torch"
+EXAMPLE_TRAIN_STEPS, EXAMPLE_RESUME_STEPS = 100, 120
 
 
 def _zero_counts() -> None:
@@ -2734,6 +2755,135 @@ def dryrun_cells(path: str) -> None:
     Path(path).write_text(json.dumps(cells))
 
 
+def _example(name: str):
+    """``examples_torch/<name>.py`` as a module (the examples are scripts,
+    not a package)."""
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples_full_width(model, params) -> dict:
+    """Phase 13 (b): the serving examples' own functions on main path 1's
+    full-width qwen2-1.5b (bf16, flash, paged): their asserts hold (every
+    request done, the cancelled one never computed, both replicas finished
+    work, steals > 0), ``alloc.check()`` on every engine, and flash launched
+    once a layer a call (a multiple of the layers), with the counts set to 0
+    just before each example and read just after."""
+    layers = model.cfg.num_layers
+    out = {}
+    for name in ("serve_requests", "serve_cluster"):
+        serve = _example(name).serve
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = serve(model, params)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _kernel_launches()
+        calls = ops.flash_attention.launches
+        if name == "serve_requests":
+            engines = [res["eng"]]
+            reqs = res["interactive"] + res["batchy"]
+            m = res["eng"].batcher.metrics
+            stats = {k: m[k] for k in ("merged_prefills", "evicted_dead",
+                                       "steps")}
+        else:
+            engines = [rep.engine for rep in res["replicas"]]
+            reqs = res["reqs"]
+            summary = res["router"].telemetry.summary()
+            stats = {"steal_events": summary["steal_events"],
+                     "requests_migrated": summary["requests_migrated"],
+                     "finished_per_replica": [
+                         r["finished"] for r in summary["per_replica"]]}
+        for eng in engines:
+            if not eng.paged:
+                raise AssertionError(f"example {name}: engine not paged")
+            eng.alloc.check()
+        if calls == 0 or calls % layers:
+            raise AssertionError(f"example {name}: {calls} flash launches, "
+                                 f"not once a layer a call ({layers})")
+        tokens = sum(r.generated for r in reqs)
+        out[name] = {"seconds": seconds, "tokens": tokens,
+                     "tokens_per_s": tokens / seconds, "flash_calls": calls,
+                     "launches": launches, **stats}
+        print(f"phase 13 (b): example {name} at full width: {tokens} "
+              f"tokens in {seconds} s, flash {calls} calls "
+              f"({launches['flash_attention']} kernels), {stats}")
+    return out
+
+
+def _example_run(script: str, *args, timeout: int) -> dict:
+    """Phase 13 (a): ``examples_torch/<script>`` as a user runs it, on the
+    card by default.  Fails unless it exits 0."""
+    cmd = [sys.executable, str(EXAMPLES / script), *args]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=timeout)
+    seconds = time.perf_counter() - t0
+    label = " ".join([script, *args])
+    tail = out.stdout.strip().splitlines()[-4:]
+    print(f"phase 13 (a): examples_torch/{label}: exit {out.returncode} in "
+          f"{seconds} s")
+    for line in tail:
+        print(f"    {line}")
+    if out.returncode != 0:
+        raise AssertionError(f"examples_torch/{label}: exit "
+                             f"{out.returncode}\n{out.stdout[-3000:]}\n"
+                             f"{out.stderr[-3000:]}")
+    return {"seconds": seconds, "stdout": out.stdout}
+
+
+def _train_steps(stdout: str) -> dict:
+    """The launcher's printed steps: step -> (loss, ms)."""
+    return {int(m.group(1)): (float(m.group(2)), float(m.group(3)))
+            for m in re.finditer(r"^step\s+(\d+) loss=(\S+) .* (\d+)ms ",
+                                 stdout, re.M)}
+
+
+def phase_examples() -> dict:
+    """Phase 13 (a): every example as a user runs it, each in its own
+    process on the card: quickstart, serve_requests, serve_cluster,
+    compose_workloads --spec, then train_lm --hundred-m (the ~131M model,
+    ``EXAMPLE_TRAIN_STEPS``) and again with ``EXAMPLE_RESUME_STEPS`` on the
+    same checkpoint directory, which must resume and reach its last step
+    with a finite loss."""
+    runs = {}
+    for script, *args in (("quickstart.py",), ("serve_requests.py",),
+                          ("serve_cluster.py",),
+                          ("compose_workloads.py", "--spec")):
+        runs[" ".join([script, *args])] = {
+            "seconds": _example_run(script, *args, timeout=300)["seconds"]}
+    ckpt = tempfile.mkdtemp(prefix="example_ckpt_")
+    try:
+        for steps, resumed in ((EXAMPLE_TRAIN_STEPS, None),
+                               (EXAMPLE_RESUME_STEPS, EXAMPLE_TRAIN_STEPS)):
+            res = _example_run("train_lm.py", "--hundred-m", "--steps",
+                               str(steps), "--ckpt-dir", ckpt, timeout=600)
+            text = res["stdout"]
+            printed = _train_steps(text)
+            last = printed.get(steps - 1)
+            if last is None or not math.isfinite(last[0]):
+                raise AssertionError(f"train_lm --steps {steps}: step "
+                                     f"{steps - 1} not printed with a finite "
+                                     f"loss:\n{text[-3000:]}")
+            said = re.search(r"resumed from step (\d+)", text)
+            if (int(said.group(1)) if said else None) != resumed:
+                raise AssertionError(f"train_lm --steps {steps}: expected "
+                                     f"resume from {resumed}, printed "
+                                     f"{said and said.group(0)}")
+            params = re.search(r"params=([\d,]+)", text)
+            runs[f"train_lm.py --hundred-m --steps {steps}"] = {
+                "seconds": res["seconds"], "resumed_from": resumed,
+                "params": int(params.group(1).replace(",", "")),
+                "steps_printed": {s: {"loss": loss, "ms": ms}
+                                  for s, (loss, ms) in printed.items()}}
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return runs
+
+
 def _init(cfg, seed):
     model = build_model(cfg, "cuda")
     t0 = time.perf_counter()
@@ -2793,6 +2943,8 @@ def main() -> int:
     del cross
     spec["probe"]["bf16_flash"] = phase_verify_probe(
         model, params, prompts[:8], s_max=2048, seed=args.seed)
+    # phase 13 (b): the serving examples at full width, with the kernels
+    examples = {"full_width": phase_examples_full_width(model, params)}
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2961,12 +3113,18 @@ def main() -> int:
 
     # phase 12: multi-device (a one-rank mesh, and the fake-world dry run)
     multidevice = phase_multidevice(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 13 (a): every example as a user runs it
+    examples["runs"] = phase_examples()
 
     # each row carries its kernel's launches on the path it was sized for
     # (the fp32 and synthetic-mask rows: the path whose heads they use);
     # the cluster runs serve qwen2-1.5b, so their launches are added into
-    # the qwen rows' count; the image-prefix runs and the trained weights'
-    # serving run are listed under their own names only
+    # the qwen rows' count; the image-prefix runs, the trained weights'
+    # serving run and the serving examples' full-width runs are listed
+    # under their own names only
     by_path = {p["arch"]: p["launches"]
                for p in (qwen, mixtral, rwkv, jamba, *decoders.values(),
                          scan_path, encdec)}
@@ -2975,6 +3133,8 @@ def main() -> int:
     own_runs = {f"internvl2-26b image prefix {k}": v["launches"]
                 for k, v in vlm.items()}
     own_runs["qwen2-1.5b trained, served"] = train["served"]["launches"]
+    for name, run in examples["full_width"].items():
+        own_runs[f"example {name}"] = run["launches"]
     rows = flash_rows + gmm_rows + wkv_rows + scan_rows
     for row in rows:
         row["launches"] = by_path[row["path"]][row["name"]]
@@ -2988,7 +3148,8 @@ def main() -> int:
     print(json.dumps({"kernels": rows, "spec": spec, "cluster": cluster,
                       "hybrid_handoff": handoff, "vlm": vlm,
                       "decoders": decoders, "train": train,
-                      "encdec": encdec, "multidevice": multidevice}))
+                      "encdec": encdec, "multidevice": multidevice,
+                      "examples": examples}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,3 +1,3 @@
-from .model_zoo import Model, build_model
+from .model_zoo import Model, build_model, lm_loss
 
-__all__ = ["Model", "build_model"]
+__all__ = ["Model", "build_model", "lm_loss"]

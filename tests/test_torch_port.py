@@ -3,6 +3,8 @@ modules equal their references, its entry points run on CUDA unless asked
 for the CPU, the launcher's equality gate passes on the CPU, and the weight
 bridge carries the reference's trees."""
 import ast
+import importlib
+import inspect
 import os
 import pathlib
 import subprocess
@@ -85,8 +87,17 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+#: the port's examples, the counterparts of ``examples/``
+EXAMPLES = sorted((ROOT / "examples_torch").glob("*.py"))
+
+
+def test_examples_are_found():
+    assert [p.name for p in EXAMPLES] == sorted(
+        p.name for p in (ROOT / "examples").glob("*.py"))
+
+
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py"] + EXAMPLES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import_in_source(path):
     for node in ast.walk(ast.parse(path.read_text())):
@@ -98,7 +109,76 @@ def test_no_jax_or_repro_import_in_source(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), (path, name)
+            assert top not in ("jax", "jaxlib", "repro", "examples"), \
+                (path, name)
+
+
+def test_running_an_example_loads_no_jax_and_no_repro():
+    code = ("import runpy, sys\n"
+            f"runpy.run_path({str(ROOT / 'examples_torch' / 'quickstart.py')!r},"
+            " run_name='__main__')\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+            "m.startswith(('repro.', 'examples')))\n"
+            "print(bad)\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], env=ENV, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.count("best=") == 3
+
+
+#: the reference's package ``__init__``s; the port mirrors each one
+REF_INITS = sorted((ROOT / "src" / "repro").rglob("__init__.py"))
+#: the one deliberate difference: ``repro.kernels`` binds its four
+#: wrappers, which in the port would shadow the kernels' packages of the
+#: same name (``repro_torch/kernels/__init__.py``); wrapper -> package
+KERNEL_WRAPPERS = {"flash_attention": "flash_attention",
+                   "grouped_swiglu": "moe_gmm", "prefix_scan": "prefix_scan",
+                   "wkv6": "wkv6"}
+
+
+def _exported(path: pathlib.Path, module) -> set:
+    """Names the package ``__init__`` at ``path`` binds by a top-level
+    ``from ... import``, and those ``module`` lists in ``__all__``."""
+    names = set(getattr(module, "__all__", ()))
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.ImportFrom):
+            names |= {a.asname or a.name for a in node.names}
+    return names
+
+
+def _kind(obj) -> str:
+    if inspect.ismodule(obj):
+        return "module"
+    if inspect.isclass(obj):
+        return "class"
+    return "function" if callable(obj) else "value"
+
+
+@pytest.mark.parametrize("path", REF_INITS,
+                         ids=lambda p: str(p.parent.relative_to(ROOT / "src")))
+def test_package_exports_match_reference(path):
+    """Every name the reference's package exports, the port's counterpart
+    exports too, as the same kind of object; ``kernels`` is the one
+    exception (its wrappers stay in their packages' ``ops``)."""
+    rel = path.parent.relative_to(ROOT / "src" / "repro").parts
+    ref = importlib.import_module(".".join(("repro", *rel)))
+    port = importlib.import_module(".".join(("repro_torch", *rel)))
+    names = _exported(path, ref)
+    if rel == ("kernels",):
+        assert names == set(KERNEL_WRAPPERS)
+        for fn, pkg in KERNEL_WRAPPERS.items():
+            ops = importlib.import_module(f"repro_torch.kernels.{pkg}.ops")
+            assert _kind(getattr(ops, fn)) == "function"
+            assert inspect.ismodule(getattr(port, pkg))
+        return
+    missing = sorted(n for n in names if not hasattr(port, n))
+    assert not missing, f"repro_torch.{'.'.join(rel)} lacks {missing}"
+    assert {n: _kind(getattr(port, n)) for n in names} == \
+        {n: _kind(getattr(ref, n)) for n in names}
+    assert set(getattr(ref, "__all__", ())) <= set(getattr(port, "__all__",
+                                                           ()))
 
 
 #: the paper's six apps and the cluster's modules, all copies
