@@ -28,7 +28,10 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      (B = 8, mixed kv_valid), and for g = 12 at S = 4, where a kv head's
      48 query rows take two CTAs (32 + 16 rows); at seamless-m4t-medium's
      decoder heads (16/16 of 64, g = 1): a decode over phase 11's 256
-     slots (B = 8, mixed kv_valid) in bf16 and fp32;
+     slots (B = 8, mixed kv_valid) in bf16 and fp32; the fp32 prefill
+     (``fma``) also at jamba's heads, at the window with a q_offset, and at
+     head dim 64 (seamless's heads, a causal 256-token prefill, mixed
+     kv_valid);
      then the split route's edges (T not a multiple of the chunk, T under
      one chunk, kv_valid 0, 1 and T in one batch, S = 2..4 causal with a
      q_offset, a window that empties the early chunks, g = 1, 6, 8, fp32);
@@ -54,7 +57,11 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      top-8 routing of 512 tokens), the plain version taken 32 experts at a
      time (widened to fp32, all 384 would not fit); kernel and plain
      version each also against the function computed in fp64 on a few rows
-     per expert; device times of the kernel and of cuBLAS bmm;
+     per expert; in fp32 at Mixtral's widths for the verify probe's
+     decode (C = 8) and verify (C = 40), real top-2 routings, and at
+     Jamba's prefill (C = 1024), each fp32 row with its tiles
+     (``gmm_plan``); every row run twice for the same bits;
+     device times of the kernel and of cuBLAS bmm;
    - WKV-6 at rwkv6-3b's heads (H = 40, N = 64): the bf16 prefill at
      T = 1024, a ragged T = 77 with a non-zero s0, fp32 at B = 2, T = 256,
      one chunk (T = 64, the shortest main-path prompt) and a chunk and a
@@ -271,7 +278,11 @@ flash attention's rows at qwen2-1.5b's heads count the cluster runs'
 launches too (the image-prefix runs are added to no row); every row lists
 its kernel's launches on each path in ``launches_by_path`` (the trained
 weights' serving run and the examples' full-width runs, ``example
-serve_requests`` and ``example serve_cluster``, under their own names).  Then the
+serve_requests`` and ``example serve_cluster``, under their own names).
+The fp32 rows of flash attention and grouped SwiGLU count instead the
+calls on their route (``route_launches``, by wrapper) of the fp32 phases:
+the KV-migration check, Mixtral's fp32 verify probe, Jamba's fp32
+hand-off and the fp32 image prefix.  Then the
 card's name and power limit; the last is ``{"ok": true, "device":
 {...}}``.
 """
@@ -488,6 +499,25 @@ def _zero_counts() -> None:
             counter.kernel_launches = 0
 
 
+def _route_counts() -> dict:
+    """The wrapper calls so far of each kernel that has routes, by route:
+    {(kernel, route): calls}.  Running totals, never set to 0 (phases that
+    set the other counts to 0 run inside ``_fp32_run``), read by
+    difference."""
+    return {(name, route): n for name, c in COUNTERS.items()
+            for route, n in getattr(c, "route_launches", {}).items()}
+
+
+def _fp32_run(runs: dict, name: str, fn):
+    """Runs one fp32 phase and records under ``name`` in ``runs`` the
+    calls it made on each kernel route: what the fp32 rows' ``launches``
+    count."""
+    before = _route_counts()
+    out = fn()
+    runs[name] = {k: n - before[k] for k, n in _route_counts().items()}
+    return out
+
+
 def _kernel_launches() -> dict:
     """The kernels each wrapper launched: its own count where a call can
     launch more than one, else its count of calls."""
@@ -683,6 +713,8 @@ def phase_kernels(seed: int) -> list:
          None, 0, [0, 2048, 7, 300, 0, 2047, 64, 1500]),
         (qwen, "prefill", torch.float32, 1, 1024, 1024, 12, 2, True, None, 0,
          None),
+        (qwen, "window_q_offset", torch.float32, 2, 256, 1024, 12, 2, True,
+         384, 768, None),
         (qwen, "decode", torch.float32, 8, 1, 2048, 12, 2, False, None, 0,
          [1, 2048, 7, 300, 1024, 2047, 64, 1500]),
         (mixtral, "mixtral_prefill", torch.bfloat16, 1, 512, 512, 48, 8,
@@ -690,6 +722,9 @@ def phase_kernels(seed: int) -> list:
         (mixtral, "mixtral_decode", torch.bfloat16, 8, 1, 1024, 48, 8, False,
          None, 0, [65, 1024, 130, 513, 1, 300, 700, 529]),
         (jamba, "jamba_prefill", torch.bfloat16, 1, 1024, 1024, 32, 8, True,
+         None, 0, None),
+        # the fp32 hand-off's prefill (jamba's heads, fp32)
+        (jamba, "jamba_prefill", torch.float32, 1, 1024, 1024, 32, 8, True,
          None, 0, None),
         (jamba, "jamba_decode", torch.bfloat16, 8, 1, 2048, 32, 8, False,
          None, 0, [65, 2048, 130, 1025, 1, 300, 1700, 529]),
@@ -729,6 +764,10 @@ def phase_kernels(seed: int) -> list:
          False, None, 0, ENCDEC_KV_VALID),
         (seamless, "seamless_decode", torch.float32, 8, 1, 256, 16, 16,
          False, None, 0, ENCDEC_KV_VALID),
+        # the fp32 prefill route at head dim 64 (seamless-m4t-medium's
+        # heads), a causal 256-token prefill with the same mixed kv_valid
+        (seamless, "seamless_prefill", torch.float32, 8, 256, 256, 16, 16,
+         True, None, 0, ENCDEC_KV_VALID),
     ]
     rows = []
     for (path, name, dt, b, s, t, h, hkv, causal, window, q_offset,
@@ -874,7 +913,10 @@ def _fp64_err(x, wg, wu, wd, outs, rows=8):
 def phase_gmm_kernel(seed: int) -> list:
     """grouped_swiglu against its plain version at Mixtral-8x22B's widths
     (E = 8, D = 6144, F = 16384), at a small fp32 shape, and at
-    jamba-v0.1-52b's (E = 16, D = 4096, F = 14336)."""
+    jamba-v0.1-52b's (E = 16, D = 4096, F = 14336); then in fp32 at the
+    widths the fp32 phases run: Mixtral's at the verify probe's C = 8
+    (decode) and C = 40 (verify), and Jamba's at C = 1024 (prefill), each
+    weight set allocated after the previous one is freed."""
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     e, d, f = 8, 6144, 16384
     mixtral, jamba = "mixtral-8x22b", "jamba-v0.1-52b"
@@ -923,6 +965,22 @@ def phase_gmm_kernel(seed: int) -> list:
     del cases, w
     gc.collect()
     torch.cuda.empty_cache()
+    # fp32: Mixtral's 8 experts (9.66 GB), then Jamba's 16 (11.3 GB)
+    w = weights(e, d, f, torch.float32)
+    cases = [(mixtral, "decode", *_routed(g, 8, e, d, torch.float32), w),
+             (mixtral, "verify_C40", *_routed(g, 40, e, d, torch.float32),
+              w)]
+    rows += _gmm_rows(cases)
+    del cases, w
+    gc.collect()
+    torch.cuda.empty_cache()
+    w = weights(16, 4096, 14336, torch.float32)
+    cases = [(jamba, "jamba_prefill",
+              *_routed(g, 1024, 16, 4096, torch.float32), w)]
+    rows += _gmm_rows(cases)
+    del cases, w
+    gc.collect()
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -941,12 +999,15 @@ def _gmm_plain(x, wg, wu, wd, load, experts=None):
 
 def _gmm_rows(cases, plain_experts=None) -> list:
     """Each case (path, name, x, load, weights): the kernel against its
-    plain version (on slices of ``plain_experts`` experts, if set), fp64
-    errors, times and bound."""
+    plain version (on slices of ``plain_experts`` experts, if set), the
+    same bits from a second call, fp64 errors, times and bound."""
     rows = []
     for path, name, x, load, (wg, wu, wd) in cases:
         got = gmm_ops.grouped_swiglu(x, wg, wu, wd, load)
         torch.cuda.synchronize()
+        # no atomics and tiles fixed by the shapes: the same bits again
+        if not torch.equal(got, gmm_ops.grouped_swiglu(x, wg, wu, wd, load)):
+            raise AssertionError(f"grouped_swiglu {name}: two calls differ")
         want = _gmm_plain(x, wg, wu, wd, load, plain_experts)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
@@ -964,9 +1025,13 @@ def _gmm_rows(cases, plain_experts=None) -> list:
         err64, plain_err64 = _fp64_err(x, wg, wu, wd, (got, want))
         bound_ms, bound_by = _gmm_bound(x, wg.shape[2], load)
         ms = _time_ms(lambda: gmm_ops.grouped_swiglu(x, wg, wu, wd, load))
+        plan = None   # bf16 picks its own tiles
+        if x.dtype == torch.float32:
+            plan = gmm_ops.gmm_plan(*x.shape, wg.shape[2])._asdict()
         rows.append(dict(
             GMM_KERNEL, case=f"{name}/{str(x.dtype).split('.')[1]}",
-            path=path,
+            path=path, kernel_route=gmm_ops.kernel_route(x.dtype),
+            tile_plan=plan,
             shape=dict(E=x.shape[0], C=x.shape[1], D=x.shape[2],
                        F=wg.shape[2], load=load.tolist()),
             max_abs_err=err, max_err=err, tol=tol, ms=ms, kernel_ms=ms,
@@ -984,8 +1049,10 @@ def _gmm_rows(cases, plain_experts=None) -> list:
             library_device_ms=_device_ms(
                 lambda: _gmm_library(x, wg, wu, wd), reps=5),
             bound_ms=bound_ms, bound_by=bound_by))
+        tiles = "" if plan is None else " " + json.dumps(plan)
         print(f"kernel grouped_swiglu {rows[-1]['case']} E={x.shape[0]} "
-              f"C={x.shape[1]} D={x.shape[2]} F={wg.shape[2]}: max_err {err} "
+              f"C={x.shape[1]} D={x.shape[2]} F={wg.shape[2]}{tiles}: "
+              f"max_err {err} "
               f"(tol {tol}; against fp64: kernel {err64}, plain "
               f"{plain_err64}; bitwise equal {rows[-1]['bitwise_equal']}), "
               f"{ms} ms, plain {rows[-1]['plain_ms']} ms, "
@@ -2958,8 +3025,11 @@ def main() -> int:
     spec["qwen2-1.5b_fp32_exact"] = phase_spec_exact(
         model, params, prompts[:4], s_max=2048, max_new=16, seed=args.seed)
     # KV migration keeps the tokens: the same weights, flash on
-    cluster["kv_exact"] = phase_cluster_kv(
-        build_model(cfg.replace(use_flash=True), "cuda"), params, args.seed)
+    fp32_runs = {}
+    cluster["kv_exact"] = _fp32_run(
+        fp32_runs, "qwen2-1.5b fp32 kv migration",
+        lambda: phase_cluster_kv(build_model(cfg.replace(use_flash=True),
+                                             "cuda"), params, args.seed))
     spec["probe"]["fp32"] = phase_verify_probe(
         model, params, prompts[:8], s_max=2048, seed=args.seed,
         bound=PROBE_TOL_FP32)
@@ -2992,9 +3062,10 @@ def main() -> int:
     cfg = get_config("mixtral-8x22b").replace(
         num_layers=2, dtype="float32", param_dtype="float32", use_flash=True)
     model, params = _init(cfg, args.seed)
-    spec["probe"]["mixtral_fp32_flash"] = phase_verify_probe(
-        model, params, prompts, s_max=1024, seed=args.seed,
-        bound=PROBE_TOL_FP32)
+    spec["probe"]["mixtral_fp32_flash"] = _fp32_run(
+        fp32_runs, "mixtral-8x22b fp32 verify probe",
+        lambda: phase_verify_probe(model, params, prompts, s_max=1024,
+                                   seed=args.seed, bound=PROBE_TOL_FP32))
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3032,8 +3103,10 @@ def main() -> int:
     cfg = cfg.replace(num_layers=cfg.attn_every, dtype="float32",
                       param_dtype="float32")
     model, params = _init(cfg, args.seed)
-    handoff["fp32"] = phase_hybrid_handoff(model, params, prompts[:4],
-                                           bound_rel=HANDOFF_TOL_FP32)
+    handoff["fp32"] = _fp32_run(
+        fp32_runs, "jamba-v0.1-52b fp32 hand-off",
+        lambda: phase_hybrid_handoff(model, params, prompts[:4],
+                                     bound_rel=HANDOFF_TOL_FP32))
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3087,8 +3160,10 @@ def main() -> int:
     cfg = get_config("internvl2-26b").replace(
         num_layers=4, dtype="float32", param_dtype="float32", use_flash=True)
     model, params = _init(cfg, args.seed)
-    vlm["fp32"] = phase_vlm(model, params, args.seed,
-                            bound_rel=PROBE_TOL_FP32)
+    vlm["fp32"] = _fp32_run(
+        fp32_runs, "internvl2-26b fp32 image prefix",
+        lambda: phase_vlm(model, params, args.seed,
+                          bound_rel=PROBE_TOL_FP32))
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3120,7 +3195,8 @@ def main() -> int:
     examples["runs"] = phase_examples()
 
     # each row carries its kernel's launches on the path it was sized for
-    # (the fp32 and synthetic-mask rows: the path whose heads they use);
+    # (the synthetic-mask rows: the path whose heads they use; the fp32
+    # flash and grouped-SwiGLU rows: the fp32 phases' calls on their route);
     # the cluster runs serve qwen2-1.5b, so their launches are added into
     # the qwen rows' count; the image-prefix runs, the trained weights'
     # serving run and the serving examples' full-width runs are listed
@@ -3137,6 +3213,12 @@ def main() -> int:
         own_runs[f"example {name}"] = run["launches"]
     rows = flash_rows + gmm_rows + wkv_rows + scan_rows
     for row in rows:
+        if "kernel_route" in row and row["case"].endswith("/float32"):
+            n = {run: c[(row["name"], row["kernel_route"])]
+                 for run, c in fp32_runs.items()}
+            row["launches"] = sum(n.values())
+            row["launches_by_path"] = {r: k for r, k in n.items() if k}
+            continue
         row["launches"] = by_path[row["path"]][row["name"]]
         row["launches_by_path"] = {
             p: n[row["name"]]

@@ -63,14 +63,19 @@
 // and divides by max(L, 1e-30): a row no split saw writes 0.  With a single
 // split the split kernel writes the output itself.
 //
-// "fma": fp32 prefill (S > 4) on the CUDA cores (flash_fwd_kernel; first,
-// simple version).  One CTA of 128 threads per (64-row query tile, head,
-// batch).  K and V tiles of 64 rows are staged in dynamic shared memory as
-// fp32 (padded rows, no bank conflicts); scores and the online softmax stay
-// in fp32 registers.  Two threads share a query row: each holds 32 score
-// columns and d / 2 output dims, and row max / row sum are warp shuffles.
-// P goes through shared memory for the PV product.  All products are plain
-// FMAs.  fp32 stays off the tensor cores: the port keeps TF32 off.
+// "fma": fp32 prefill (S > 4) on the CUDA cores (flash_fwd_fma_kernel;
+// fp32 stays off the tensor cores: the port keeps TF32 off).  One CTA of 8
+// warps per (head, batch, 64-row query tile), the heaviest causal tiles
+// launched first.  Q stays in shared memory; K and V tiles of 64 rows come
+// through a 2-stage cp.async ring.  Warp w owns 16 query rows (w % 4) and
+// one half of every kv tile's columns (w / 4), with its own online softmax
+// in fp32 registers: a lane holds 4 x 4 scores and up to 8 rows x 8 dims of
+// O, reads Q, K, P and V as float4 (each shared word feeds 4-16 FMAs; the
+// first version fed one), and passes P through the warp's own rows of
+// shared memory.  The two halves of a row merge in a fixed order at the
+// end, so the walk over a kv tile is split across twice the warps and the
+// heaviest causal tile, the critical path, takes half as long.  exp is
+// exp2f (full fp32) of log2(e)-scaled logits.
 //
 // No route uses atomics, and a split's order is fixed: the same call gives
 // the same bits, and a row's result depends only on its inputs, T and the
@@ -86,12 +91,16 @@
 //     ~ 4 * S^2 * d * H / 2.  The mma route puts them on the tensor cores,
 //     but with 4 warps a CTA and one or two CTAs an SM, each warp's chain
 //     of mma.sync, softmax and mma.sync is latency-bound: one CTA alone
-//     takes as long per kv tile as 132 together (PERF.md section 6).
+//     takes as long per kv tile as 132 together (PERF.md section 6).  In
+//     fp32 the same FLOPs go to the CUDA cores (67 TFLOP/s); at qwen2-1.5b's
+//     causal 1024 tokens the fma route's critical path is the heaviest
+//     query tile (32 kv tiles of 32 columns a warp), ~3x the bound.
 // Next steps: prefill on wgmma with TMA loads into a ring of shared-memory
 // stages (a warpgroup's asynchronous products let one tile's softmax run
-// under the next tile's QK^T); fp32 prefill with register-tiled FMAs; the
-// combine folded into the split pass (the last CTA of a row behind a
-// counter) to save the second pass's latency.
+// under the next tile's QK^T); fp32 prefill's heaviest query tiles split
+// over more CTAs (a combine as the split route's); the combine folded into
+// the split pass (the last CTA of a row behind a counter) to save the
+// second pass's latency.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,8 +110,6 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kFmaBQ = 64;       // query rows a CTA of the fma route
 constexpr int kBK = 64;          // kv rows per tile
 constexpr float kNeg = -1e30f;   // masked logit, as in the TPU kernel
 
@@ -113,180 +120,6 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-// Stage `rows` rows of D floats (row r at src + r * stride) into shared
-// memory with row pitch D + 1.  Rows at or beyond `valid` are zeroed.
-// 16-byte vector loads: the wrapper checks alignment.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst,
-                                          const float* __restrict__ src,
-                                          long long stride, int rows,
-                                          int valid) {
-  constexpr int kVec = 4;
-  constexpr int kVecPerRow = D / kVec;
-  for (int i = threadIdx.x; i < rows * kVecPerRow; i += kThreads) {
-    const int r = i / kVecPerRow;
-    const int c = (i % kVecPerRow) * kVec;
-    float* d = dst + r * (D + 1) + c;
-    if (r < valid) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + r * stride + c);
-      const float* e = reinterpret_cast<const float*>(&raw);
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) d[j] = e[j];
-    } else {
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) d[j] = 0.f;
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v,
-                 const int* __restrict__ kv_valid, float* __restrict__ o,
-                 int S, int Tk, int H, int Hkv, int q_offset, int causal,
-                 int window, float scale) {
-  constexpr int BQ = kFmaBQ;
-  constexpr int TPR = kThreads / BQ;  // threads per query row
-  constexpr int NC = kBK / TPR;       // score columns per thread
-  constexpr int ND = D / TPR;         // output dims per thread
-  constexpr int LD = D + 1;           // padded smem row pitch
-  constexpr int LP = kBK + 1;
-  static_assert(TPR <= 32 && 32 % TPR == 0, "a row's threads share a warp");
-  static_assert(kBK % TPR == 0 && D % TPR == 0, "even split of a row");
-
-  extern __shared__ float smem[];
-  float* Qs = smem;            // [BQ][LD]
-  float* Ks = Qs + BQ * LD;    // [kBK][LD]
-  float* Vs = Ks + kBK * LD;   // [kBK][LD]
-  float* Ps = Vs + kBK * LD;   // [BQ][LP]
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int hk = h / (H / Hkv);
-  const int tid = threadIdx.x, r = tid / TPR, c = tid % TPR;
-  const int qrows = min(BQ, S - q0);
-  // A warp holds 32 / TPR whole rows; it computes iff its first row exists
-  // (so shuffles among row-mates always see the full warp).
-  const bool warp_live = (tid / 32) * (32 / TPR) < qrows;
-
-  const long long q_stride = (long long)H * D;
-  const long long kv_stride = (long long)Hkv * D;
-  load_tile<D>(Qs, q + ((long long)b * S + q0) * q_stride + (long long)h * D,
-               q_stride, BQ, qrows);
-
-  // Columns any row of this CTA may see: the block skipping of the TPU
-  // kernel as loop bounds.
-  int kv_lim = Tk;
-  if (kv_valid != nullptr) kv_lim = min(kv_lim, kv_valid[b]);
-  int kv_end = kv_lim;
-  if (causal) kv_end = min(kv_end, q0 + qrows - 1 + q_offset + 1);
-  int kv_begin = 0;
-  if (window > 0) kv_begin = max(0, q0 + q_offset - window + 1);
-
-  const int arow = q0 + r + q_offset;  // absolute position of my row
-  float m = kNeg, l = 0.f;
-  float acc[ND];
-#pragma unroll
-  for (int i = 0; i < ND; ++i) acc[i] = 0.f;
-
-  for (int t0 = (kv_begin / kBK) * kBK; t0 < kv_end; t0 += kBK) {
-    __syncthreads();  // Q staged / previous tile consumed
-    const long long off = ((long long)b * Tk + t0) * kv_stride +
-                          (long long)hk * D;
-    const int trows = min(kBK, Tk - t0);
-    load_tile<D>(Ks, k + off, kv_stride, kBK, trows);
-    load_tile<D>(Vs, v + off, kv_stride, kBK, trows);
-    __syncthreads();
-    if (!warp_live) continue;
-
-    float s[NC];
-#pragma unroll
-    for (int j = 0; j < NC; ++j) s[j] = 0.f;
-    const float* qr = Qs + r * LD;
-    for (int kk = 0; kk < D; ++kk) {
-      const float qv = qr[kk];
-#pragma unroll
-      for (int j = 0; j < NC; ++j) s[j] += qv * Ks[(j * TPR + c) * LD + kk];
-    }
-
-    float tmax = kNeg;
-    unsigned live = 0;  // bit j: column j * TPR + c is unmasked
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int col = t0 + j * TPR + c;
-      bool ok = col < kv_lim;
-      if (causal) ok = ok && col <= arow;
-      if (window > 0) ok = ok && arow - col < window;
-      s[j] = ok ? s[j] * scale : kNeg;
-      live |= (ok ? 1u : 0u) << j;
-      tmax = fmaxf(tmax, s[j]);
-    }
-#pragma unroll
-    for (int w = TPR / 2; w > 0; w /= 2)
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, w));
-    const float m_new = fmaxf(m, tmax);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const float p = ((live >> j) & 1u) ? expf(s[j] - m_new) : 0.f;
-      psum += p;
-      Ps[r * LP + j * TPR + c] = p;
-    }
-#pragma unroll
-    for (int w = TPR / 2; w > 0; w /= 2)
-      psum += __shfl_xor_sync(0xffffffffu, psum, w);
-    const float alpha = expf(m - m_new);
-    l = l * alpha + psum;
-    m = m_new;
-    __syncwarp();  // the row's P is visible to its threads
-
-#pragma unroll
-    for (int i = 0; i < ND; ++i) acc[i] *= alpha;
-    const float* pr = Ps + r * LP;
-    for (int jj = 0; jj < kBK; ++jj) {
-      const float p = pr[jj];
-      const float* vr = Vs + jj * LD + c;
-#pragma unroll
-      for (int i = 0; i < ND; ++i) acc[i] += p * vr[i * TPR];
-    }
-  }
-
-  if (r < qrows) {
-    const float lc = fmaxf(l, 1e-30f);
-    float* out = o + ((long long)b * S + q0 + r) * q_stride + (long long)h * D;
-#pragma unroll
-    for (int i = 0; i < ND; ++i) out[i * TPR + c] = acc[i] / lc;
-  }
-}
-
-// fp32 prefill (S > 4): 64-row query tiles
-template <int D>
-cudaError_t launch_fma(const void* q, const void* k, const void* v,
-                       const int* kv_valid, void* o, int B, int S, int Tk,
-                       int H, int Hkv, int q_offset, int causal, int window,
-                       float scale, cudaStream_t stream) {
-  constexpr int BQ = kFmaBQ;
-  if (S <= 4) return cudaErrorInvalidValue;  // decode takes the split route
-  const size_t smem = ((BQ + 2 * kBK) * (D + 1) + BQ * (kBK + 1)) *
-                      sizeof(float);
-  auto kern = flash_fwd_kernel<D>;
-  // Above 48 KB a kernel must opt in to dynamic shared memory; setting the
-  // same value again is harmless.
-  static bool opted_in = false;
-  if (!opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    opted_in = true;
-  }
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), kv_valid, static_cast<float*>(o), S, Tk,
-      H, Hkv, q_offset, causal, window, scale);
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- mma route
@@ -588,6 +421,322 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), kv_valid, static_cast<bf16*>(o), S, Tk, H,
       Hkv, q_offset, causal, window, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- fma route
+//
+// fp32 prefill (S > 4) on the CUDA cores: a CTA of 8 warps a (head, batch,
+// 64-row query tile), the heaviest causal tiles launched first.  Q stays in
+// shared memory for the whole kv walk; K and V tiles of 64 rows come
+// through a 2-stage cp.async ring, all three as they lie in memory (rows
+// padded by 16 bytes).  Warp w owns query rows [16 (w % 4), + 16) and the
+// kv columns [32 (w / 4), + 32) of every tile, with its own online softmax:
+// per tile it computes its 16 x 32 scores with a lane holding 4 rows x 4
+// columns (Q and K read as float4 along d: each shared word feeds 4 FMAs),
+// writes P to its own shared rows, and accumulates O with a lane holding up
+// to 8 rows x 8 dims (P and V read as float4: each word feeds 8 or 16
+// FMAs).  The two column halves of a row merge in a fixed order at the end.
+
+constexpr int kFmaThreads = 256;  // 8 warps: 4 row blocks x 2 column halves
+constexpr int kFmaBQ = 64;        // query rows a CTA: 16 a row block
+constexpr int kFmaBK = 64;        // kv rows a tile: 32 a column half
+constexpr int kFmaLP = 32 + 8;    // P's row pitch: the 32 lanes' scalar
+                                  // writes fall in distinct banks
+
+template <int D>
+struct FmaLayout {
+  static constexpr int LD = D + 4;  // Q, K, V row pitch, floats
+  // O: DG lanes across the dims (a float4 each), ORG across the rows
+  static constexpr int DG = D / 4 < 16 ? D / 4 : 16;
+  static constexpr int ORG = 32 / DG;
+  static constexpr int OR = 16 / ORG;      // a lane's output rows
+  static constexpr int OC = D / (4 * DG);  // a lane's float4 of dims
+  // Q, the K/V ring, P, and each warp's alpha, m and l of its 16 rows
+  static constexpr size_t smem =
+      ((size_t)(kFmaBQ + 4 * kFmaBK) * LD + 8 * 16 * kFmaLP + 8 * 48) *
+      sizeof(float);
+  static_assert(D % 32 == 0 && OR * ORG == 16, "whole lane tiles");
+  static_assert(kFmaBQ * LD <= 2 * kFmaBK * LD, "the merge fits the ring");
+  static_assert(smem <= 232448, "fits the 227 KB of an H100 CTA");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kFmaThreads, 1)
+flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const int* __restrict__ kv_valid, float* __restrict__ o,
+                     int S, int Tk, int H, int Hkv, int q_offset, int causal,
+                     int window, float scale_log2) {
+  using L = FmaLayout<D>;
+  constexpr int LD = L::LD, BQ = kFmaBQ, BK = kFmaBK, LP = kFmaLP;
+  constexpr int CH = D / 4;  // float4 a row
+  constexpr int DG = L::DG, ORG = L::ORG, OR = L::OR, OC = L::OC;
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;                 // [BQ][LD]
+  float* Ks = Qs + BQ * LD;        // [2][BK][LD]
+  float* Vs = Ks + 2 * BK * LD;    // [2][BK][LD]
+  float* Ps = Vs + 2 * BK * LD;    // [8 warps][16][LP]
+  float* Rs = Ps + 8 * 16 * LP;    // [8 warps]: alpha, m, l [16] each
+  float* Os = Ks;                  // [BQ][LD], after the walk: half 1's O
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // last tiles first
+  const int hk = h / (H / Hkv);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rb = warp % 4, half = warp / 4;  // row block, column half
+  const int qrows = min(BQ, S - q0);
+  const bool live = rb * 16 < qrows;  // warp-uniform
+  const long long q_stride = (long long)H * D;
+  const long long kv_stride = (long long)Hkv * D;
+
+  // the kv tiles any row of this CTA may see (the TPU kernel's block skip)
+  int kv_lim = Tk;
+  if (kv_valid != nullptr) kv_lim = min(kv_lim, kv_valid[b]);
+  int kv_end = kv_lim;
+  if (causal) kv_end = min(kv_end, q0 + qrows + q_offset);
+  int kv_begin = 0;
+  if (window > 0) kv_begin = max(0, q0 + q_offset - window + 1);
+  const int t_first = kv_begin / BK * BK;
+  const int ntiles = kv_end > t_first ? (kv_end - t_first + BK - 1) / BK : 0;
+
+  const float* qg = q + ((long long)b * S + q0) * q_stride + (long long)h * D;
+  for (int i = tid; i < BQ * CH; i += kFmaThreads) {
+    const int r = i / CH, c = (i % CH) * 4;
+    const bool ok = r < qrows;
+    cp_async16(Qs + r * LD + c, ok ? qg + r * q_stride + c : qg, ok);
+  }
+  cp_async_commit();
+  const long long kv_base = (long long)b * Tk * kv_stride + (long long)hk * D;
+  auto load_kv = [&](int stage, int t0) {
+    const float* kg = k + kv_base + (long long)t0 * kv_stride;
+    const float* vg = v + kv_base + (long long)t0 * kv_stride;
+    float* kd = Ks + stage * BK * LD;
+    float* vd = Vs + stage * BK * LD;
+    for (int i = tid; i < BK * CH; i += kFmaThreads) {
+      const int r = i / CH, c = (i % CH) * 4;
+      const bool ok = t0 + r < kv_lim;
+      const long long off = ok ? r * kv_stride + c : 0;
+      cp_async16(kd + r * LD + c, kg + off, ok);
+      cp_async16(vd + r * LD + c, vg + off, ok);
+    }
+  };
+  if (ntiles > 0) load_kv(0, t_first);
+  cp_async_commit();
+
+  // scores: lane = 8 rg + cg holds rows rg + 4 i and columns cg + 8 j of
+  // the warp's 16 x 32 (Q rows broadcast in a quarter-warp, K rows in
+  // distinct banks); output: lane = DG og + dg holds rows og + ORG i and
+  // dims 4 dg + 4 DG jc
+  const int rg = lane / 8, cg = lane % 8;
+  const int og = lane / DG, dg = lane % DG;
+  const float* qw = Qs + rb * 16 * LD;
+  float* pw = Ps + warp * 16 * LP;
+  float* rw = Rs + warp * 48;
+  float m[4], l[4];
+  int arow[4];  // absolute query positions of my score rows
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNeg;
+    l[i] = 0.f;
+    arow[i] = q0 + rb * 16 + rg + 4 * i + q_offset;
+  }
+  float4 acc[OR][OC];
+#pragma unroll
+  for (int i = 0; i < OR; ++i)
+#pragma unroll
+    for (int jc = 0; jc < OC; ++jc)
+      acc[i][jc] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int stage = it & 1;
+    const int t0 = t_first + it * BK + 32 * half;  // my columns' first
+    if (it + 1 < ntiles) load_kv(stage ^ 1, t_first + (it + 1) * BK);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and Q) have landed
+    __syncthreads();
+    if (live) {
+      const float* kt = Ks + (stage * BK + 32 * half) * LD;
+      const float* vt = Vs + (stage * BK + 32 * half) * LD;
+      float s[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+      for (int c = 0; c < D; c += 4) {
+        float4 qv[4], kv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(qw + (rg + 4 * i) * LD + c);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(kt + (cg + 8 * j) * LD + c);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] += qv[i].x * kv[j].x;
+            s[i][j] += qv[i].y * kv[j].y;
+            s[i][j] += qv[i].z * kv[j].z;
+            s[i][j] += qv[i].w * kv[j].w;
+          }
+      }
+
+      // online softmax, a row across the 8 lanes of its rg; P to shared
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        unsigned dead = 0;  // bit j: column cg + 8 j is masked
+        float mx = kNeg;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = t0 + cg + 8 * j;
+          bool ok = col < kv_lim;
+          if (causal) ok = ok && col <= arow[i];
+          if (window > 0) ok = ok && arow[i] - col < window;
+          s[i][j] = ok ? s[i][j] * scale_log2 : kNeg;
+          dead |= (ok ? 0u : 1u) << j;
+          mx = fmaxf(mx, s[i][j]);
+        }
+#pragma unroll
+        for (int w = 1; w < 8; w <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+        const float mn = fmaxf(m[i], mx);
+        const float alpha = exp2f(m[i] - mn);
+        m[i] = mn;
+        float ps = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = ((dead >> j) & 1u) ? 0.f : exp2f(s[i][j] - mn);
+          pw[(rg + 4 * i) * LP + cg + 8 * j] = p;
+          ps += p;
+        }
+#pragma unroll
+        for (int w = 1; w < 8; w <<= 1)
+          ps += __shfl_xor_sync(0xffffffffu, ps, w);
+        l[i] = l[i] * alpha + ps;
+        if (cg == 0) rw[rg + 4 * i] = alpha;
+      }
+      __syncwarp();  // the warp's P and alpha are visible to its lanes
+
+      // O = O alpha + P V over my 32 kv rows
+#pragma unroll
+      for (int i = 0; i < OR; ++i) {
+        const float al = rw[og + ORG * i];
+#pragma unroll
+        for (int jc = 0; jc < OC; ++jc) {
+          acc[i][jc].x *= al;
+          acc[i][jc].y *= al;
+          acc[i][jc].z *= al;
+          acc[i][jc].w *= al;
+        }
+      }
+#pragma unroll 2
+      for (int c = 0; c < 32; c += 4) {
+        float4 pv[OR];
+#pragma unroll
+        for (int i = 0; i < OR; ++i)
+          pv[i] = *reinterpret_cast<const float4*>(pw + (og + ORG * i) * LP +
+                                                   c);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float4 vv[OC];
+#pragma unroll
+          for (int jc = 0; jc < OC; ++jc)
+            vv[jc] = *reinterpret_cast<const float4*>(
+                vt + (c + u) * LD + 4 * dg + 4 * DG * jc);
+#pragma unroll
+          for (int i = 0; i < OR; ++i) {
+            const float p = u == 0 ? pv[i].x : u == 1 ? pv[i].y
+                          : u == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+            for (int jc = 0; jc < OC; ++jc) {
+              acc[i][jc].x += p * vv[jc].x;
+              acc[i][jc].y += p * vv[jc].y;
+              acc[i][jc].z += p * vv[jc].z;
+              acc[i][jc].w += p * vv[jc].w;
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // this stage is reloaded two tiles on
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: half 1's O goes there
+
+  // merge the halves of each row, half 0 then half 1: M = max(m0, m1),
+  // O = (O0 2^(m0 - M) + O1 2^(m1 - M)) / max(l0 2^(m0 - M) + l1 ..., 1e-30)
+  if (live) {
+    if (cg == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        rw[16 + rg + 4 * i] = m[i];
+        rw[32 + rg + 4 * i] = l[i];
+      }
+    }
+    if (half == 1) {
+#pragma unroll
+      for (int i = 0; i < OR; ++i)
+#pragma unroll
+        for (int jc = 0; jc < OC; ++jc)
+          *reinterpret_cast<float4*>(Os + (rb * 16 + og + ORG * i) * LD +
+                                     4 * dg + 4 * DG * jc) = acc[i][jc];
+    }
+  }
+  __syncthreads();
+  if (!live || half == 1) return;
+  const float* r1 = Rs + (warp + 4) * 48;  // half 1 of my rows
+#pragma unroll
+  for (int i = 0; i < OR; ++i) {
+    const int r = og + ORG * i;
+    if (rb * 16 + r >= qrows) continue;
+    const float m0 = rw[16 + r], m1 = r1[16 + r];
+    const float mm = fmaxf(m0, m1);
+    const float f0 = exp2f(m0 - mm), f1 = exp2f(m1 - mm);
+    const float lc = fmaxf(rw[32 + r] * f0 + r1[32 + r] * f1, 1e-30f);
+    const float* o1 = Os + (rb * 16 + r) * LD + 4 * dg;
+    float* out = o + ((long long)b * S + q0 + rb * 16 + r) * q_stride +
+                 (long long)h * D + 4 * dg;
+#pragma unroll
+    for (int jc = 0; jc < OC; ++jc) {
+      const float4 a1 = *reinterpret_cast<const float4*>(o1 + 4 * DG * jc);
+      *reinterpret_cast<float4*>(out + 4 * DG * jc) = make_float4(
+          (acc[i][jc].x * f0 + a1.x * f1) / lc,
+          (acc[i][jc].y * f0 + a1.y * f1) / lc,
+          (acc[i][jc].z * f0 + a1.z * f1) / lc,
+          (acc[i][jc].w * f0 + a1.w * f1) / lc);
+    }
+  }
+}
+
+// fp32 prefill (S > 4): 64-row query tiles, heaviest first
+template <int D>
+cudaError_t launch_fma(const void* q, const void* k, const void* v,
+                       const int* kv_valid, void* o, int B, int S, int Tk,
+                       int H, int Hkv, int q_offset, int causal, int window,
+                       float scale, cudaStream_t stream) {
+  if (S <= 4) return cudaErrorInvalidValue;  // decode takes the split route
+  constexpr size_t smem = FmaLayout<D>::smem;
+  auto kern = flash_fwd_fma_kernel<D>;
+  // above 48 KB a kernel must opt in (once); the largest shared-memory
+  // carveout lets two CTAs share an SM where registers allow (d = 32)
+  static bool opted_in = false;
+  if (!opted_in) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    opted_in = true;
+  }
+  const dim3 grid(H, B, (S + kFmaBQ - 1) / kFmaBQ);
+  kern<<<grid, kFmaThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), kv_valid, static_cast<float*>(o), S, Tk,
+      H, Hkv, q_offset, causal, window, scale * kLog2e);
   return cudaGetLastError();
 }
 

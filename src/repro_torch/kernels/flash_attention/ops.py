@@ -7,7 +7,8 @@ axis of a decode call.  On a CPU tensor it runs the plain version
 (``ref.flash_attention_plain``).  ``flash_attention.launches`` counts the
 calls that launched a route, ``flash_attention.kernel_launches`` the
 kernels they launched (a split decode of several splits is two: the split
-pass and the combine pass).
+pass and the combine pass), and ``flash_attention.route_launches`` the
+calls by route.
 
 The signature is that of ``repro/kernels/flash_attention/ops.py`` without
 its TPU tiling knobs (``bq``, ``bk``, ``interpret``): the CUDA kernel picks
@@ -153,8 +154,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            + lib.flash_attention_error_string(code).decode())
     flash_attention.launches += 1
     flash_attention.kernel_launches += 2 if plan.splits > 1 else 1
+    flash_attention.route_launches[route] += 1
     return out
 
 
 flash_attention.launches = 0
 flash_attention.kernel_launches = 0
+flash_attention.route_launches = dict.fromkeys(_ROUTE_CODE, 0)

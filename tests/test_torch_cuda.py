@@ -38,6 +38,13 @@ def _inputs(b, s, t, h, hkv, d, seed=1):
     (1, 512, 512, 48, 8, 128, True, 4096, 0, None),
     (8, 1, 1024, 48, 8, 128, False, None, 0,
      [65, 1024, 130, 513, 1, 300, 700, 529]),
+    # prefill on the edges of the fp32 route's tiles (64 query rows, 32 kv
+    # rows): ragged S and T, kv_valid, a window, a q_offset, a row with
+    # kv_valid = 0
+    (2, 77, 130, 4, 2, 128, True, None, 53, [100, 130]),
+    (1, 200, 300, 8, 2, 64, True, 48, 100, None),
+    (2, 65, 161, 4, 1, 32, False, None, 0, [161, 0]),
+    (1, 129, 129, 12, 2, 128, True, 40, 0, None),
 ])
 def test_kernel_matches_plain_on_card(b, s, t, h, hkv, d, causal, window,
                                       q_offset, kv_valid, dtype, tol):
@@ -71,6 +78,30 @@ def test_kernel_matches_plain_on_card(b, s, t, h, hkv, d, causal, window,
 def test_grouped_swiglu_matches_plain_on_card(e, c, d, f, load, dtype, tol):
     """Rows beyond each expert's load are zero, as dispatch leaves them; the
     kernel skips them and must still write them as zeros."""
+    _check_grouped_swiglu(e, c, d, f, load, dtype, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,d,f,load", [
+    (3, 40, 260, 516, [0, 1, 40]),
+    (2, 9, 20, 36, [9, 4]),
+    (4, 130, 132, 68, [130, 0, 65, 129]),
+    # the prefill tile, both phases, at C = 40 (row tiles of up to 32
+    # live rows take its sliver path) and at C = 300 (row tiles of 44, 1
+    # and 0 live rows)
+    (16, 40, 4356, 2180, [40, 0, 1, 13, 33, 8, 9, 39, 32, 2, 17, 31, 0, 5,
+                          40, 26]),
+    (4, 300, 5636, 2820, [300, 129, 0, 257]),
+])
+def test_grouped_swiglu_fp32_tile_edges_on_card(e, c, d, f, load):
+    """fp32 on the edges of its tiles (``ops.gmm_plan``: narrow, prefill):
+    D and F multiples of 4 but not of the tiles' columns, C just
+    over the decode tile's 8 rows and over one 128-row tile, loads of 0, 1
+    and C rows, within 1e-4 of the plain version."""
+    _check_grouped_swiglu(e, c, d, f, load, "float32", 1e-4)
+
+
+def _check_grouped_swiglu(e, c, d, f, load, dtype, tol):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     dt = getattr(torch, dtype)
@@ -437,17 +468,22 @@ def test_grouped_swiglu_mma_on_card(e, c, d, f, load):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [16, 300])
-def test_grouped_swiglu_row_bits_on_card(c):
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("c", [8, 16, 300, 1024])
+def test_grouped_swiglu_row_bits_on_card(c, dtype):
     """A row's bits do not depend on its place in the slab or on the other
-    experts' loads (one fixed k order, no atomics)."""
+    experts' loads (one fixed k order, no atomics), on each tile: in fp32
+    (wider, so the prefill tile's grid fills the card) decode (C = 8),
+    narrow (16), prefill (300, phase (a); 1024, both phases, with the
+    sliver path for the experts of 3 and 1 rows)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    e, d, f = 4, 512, 1024
+    e, d, f = (4, 512, 1024) if dtype == "bfloat16" else (4, 2304, 2176)
+    dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(c)
-    x = torch.randn(e, c, d, generator=g, device="cuda").bfloat16()
+    x = torch.randn(e, c, d, generator=g, device="cuda").to(dt)
     w = [(torch.randn(shape, generator=g, device="cuda") / shape[1] ** 0.5
-          ).bfloat16() for shape in ((e, d, f), (e, d, f), (e, f, d))]
+          ).to(dt) for shape in ((e, d, f), (e, d, f), (e, f, d))]
     full = torch.full((e,), c, dtype=torch.int32, device="cuda")
     y = gmm_ops.grouped_swiglu(x, *w, full)
     perm = torch.randperm(c, generator=g, device="cuda")

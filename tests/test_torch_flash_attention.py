@@ -25,6 +25,11 @@ CASES = [
     (2, 40, 100, 4, 2, 32, True, None),
     (1, 100, 100, 4, 4, 32, False, None),
     (1, 24, 72, 2, 2, 32, True, 16),
+    # on the fp32 route's tile edges (64 query rows, kv tiles of 64 in two
+    # halves of 32): S just over a tile, T not a multiple of 32, a window
+    (1, 65, 97, 4, 2, 128, True, None),
+    (2, 130, 161, 4, 1, 64, True, 40),
+    (1, 33, 33, 2, 2, 32, False, None),
 ]
 
 
