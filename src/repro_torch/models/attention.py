@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import trace
 from ..configs.base import ModelConfig
 from ..sharding.dtensor import (flatten, heads_local, is_dtensor, put_rows,
                                unflatten)
@@ -224,6 +225,13 @@ def _attend_decode(q: torch.Tensor, k_cache: torch.Tensor,
     return _sdpa(q, k_cache, v_cache, valid[:, None, :], hd ** -0.5)
 
 
+def _view_bytes(cache: PagedKVCache, b: int, cap: int) -> int:
+    """Bytes of the K and V logical views ``[b, cap, kvH, hd]`` that a
+    paged layer gathers out of the pool."""
+    k = cache.k
+    return 2 * b * cap * k.shape[2] * k.shape[3] * k.element_size()
+
+
 def _pos_vec(pos, b: int, device) -> torch.Tensor:
     return torch.as_tensor(pos, device=device).reshape(-1).long().expand(b)
 
@@ -259,19 +267,27 @@ def attention_decode_paged(p: dict, x: torch.Tensor, cache: PagedKVCache,
     b = x.shape[0]
     bs = cache.k.shape[1]
     cap = table.shape[1] * bs
-    pos_vec = _pos_vec(pos, b, x.device)
-    q, k_new, v_new = _project_qkv(p, x, cfg, pos_vec[:, None])
-    # ring slot -> (physical block, offset); empty batch slots hit the sink
-    slot = pos_vec % cap
-    blk = torch.gather(table.long(), 1, (slot // bs)[:, None])[:, 0]
-    off = slot % bs
-    cache.k[blk, off] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[blk, off] = v_new[:, 0].to(cache.v.dtype)
+    with trace.span("attn.qkv"):
+        pos_vec = _pos_vec(pos, b, x.device)
+        q, k_new, v_new = _project_qkv(p, x, cfg, pos_vec[:, None])
+    with trace.span("attn.kv_write"):
+        # ring slot -> (physical block, offset); empty batch slots hit the
+        # sink
+        slot = pos_vec % cap
+        blk = torch.gather(table.long(), 1, (slot // bs)[:, None])[:, 0]
+        off = slot % bs
+        cache.k[blk, off] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[blk, off] = v_new[:, 0].to(cache.v.dtype)
     # gather the per-sequence logical view [B, cap, kvH, hd]
-    k_log = cache.k[table.long()].reshape(b, cap, *cache.k.shape[2:])
-    v_log = cache.v[table.long()].reshape(b, cap, *cache.v.shape[2:])
-    out = _attend_decode(q, k_log, v_log, pos_vec, cfg)
-    y = linear(p["wo"], flatten(out, 2))
+    with trace.span("attn.gather") as attrs:
+        if attrs is not None:
+            attrs["bytes"] = _view_bytes(cache, b, cap)
+        k_log = cache.k[table.long()].reshape(b, cap, *cache.k.shape[2:])
+        v_log = cache.v[table.long()].reshape(b, cap, *cache.v.shape[2:])
+    with trace.span("attn.core"):
+        out = _attend_decode(q, k_log, v_log, pos_vec, cfg)
+    with trace.span("attn.out"):
+        y = linear(p["wo"], flatten(out, 2))
     return y, cache
 
 
@@ -328,20 +344,28 @@ def attention_prefill_chunk_paged(p: dict, x: torch.Tensor,
     row = table_row.long()
     cap = row.shape[0] * bs
     hd = cfg.resolved_head_dim
-    rows = int(start) + torch.arange(c, device=x.device)
-    q, k_new, v_new = _project_qkv(p, x, cfg, rows[None, :])
-    blk = row[rows // bs]
-    off = rows % bs
-    cache.k[blk, off] = k_new[0].to(cache.k.dtype)
-    cache.v[blk, off] = v_new[0].to(cache.v.dtype)
-    k_log = cache.k[row].reshape(1, cap, *cache.k.shape[2:])
-    v_log = cache.v[row].reshape(1, cap, *cache.v.shape[2:])
-    j = torch.arange(cap, device=x.device)[None, None, :]  # logical col == pos
-    valid = j <= rows[None, :, None]
-    if cfg.sliding_window is not None:
-        valid &= rows[None, :, None] - j < cfg.sliding_window
-    out = _sdpa(q, k_log, v_log, valid, hd ** -0.5)
-    y = linear(p["wo"], flatten(out, 2))
+    with trace.span("attn.qkv"):
+        rows = int(start) + torch.arange(c, device=x.device)
+        q, k_new, v_new = _project_qkv(p, x, cfg, rows[None, :])
+    with trace.span("attn.kv_write"):
+        blk = row[rows // bs]
+        off = rows % bs
+        cache.k[blk, off] = k_new[0].to(cache.k.dtype)
+        cache.v[blk, off] = v_new[0].to(cache.v.dtype)
+    with trace.span("attn.gather") as attrs:
+        if attrs is not None:
+            attrs["bytes"] = _view_bytes(cache, 1, cap)
+        k_log = cache.k[row].reshape(1, cap, *cache.k.shape[2:])
+        v_log = cache.v[row].reshape(1, cap, *cache.v.shape[2:])
+    with trace.span("attn.core"):
+        # logical column == position
+        j = torch.arange(cap, device=x.device)[None, None, :]
+        valid = j <= rows[None, :, None]
+        if cfg.sliding_window is not None:
+            valid &= rows[None, :, None] - j < cfg.sliding_window
+        out = _sdpa(q, k_log, v_log, valid, hd ** -0.5)
+    with trace.span("attn.out"):
+        y = linear(p["wo"], flatten(out, 2))
     return y, cache
 
 

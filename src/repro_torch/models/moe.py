@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .. import trace
 from ..configs.base import ModelConfig
 from ..core.device.moe_balance import (combine_expert_outputs,
                                        gather_expert_inputs,
@@ -88,15 +89,19 @@ def moe_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig,
     # no DTensor sharding strategy) and the combine run on all-gathered
     # plain tensors; the dispatch buffer rejoins the mesh replicated, and
     # the expert FFN runs against the sharded expert weights.
-    logits = replicated_local(xt.float() @ p["router"]["w"])
-    expert_idx, gate, probs = route_topk(logits, k)
-    plan = priority_dispatch(expert_idx, gate, probs, num_experts=e,
-                             capacity=cap, policy=cfg.dispatch_policy,
-                             resteal=cfg.dispatch_resteal)
-    buf = like(gather_expert_inputs(replicated_local(xt), plan, k), x)
-    buf = _expert_ffn(p, buf, use_kernel, plan.load)   # [E, C, D]
-    y = like(combine_expert_outputs(replicated_local(buf), plan, t, k), x
-             ).to(x.dtype)
+    with trace.span("moe.route"):
+        logits = replicated_local(xt.float() @ p["router"]["w"])
+        expert_idx, gate, probs = route_topk(logits, k)
+    with trace.span("moe.dispatch"):
+        plan = priority_dispatch(expert_idx, gate, probs, num_experts=e,
+                                 capacity=cap, policy=cfg.dispatch_policy,
+                                 resteal=cfg.dispatch_resteal)
+        buf = like(gather_expert_inputs(replicated_local(xt), plan, k), x)
+    with trace.span("moe.experts"):
+        buf = _expert_ffn(p, buf, use_kernel, plan.load)   # [E, C, D]
+    with trace.span("moe.combine"):
+        y = like(combine_expert_outputs(replicated_local(buf), plan, t, k),
+                 x).to(x.dtype)
 
     # Switch-style load-balance aux loss: E * Σ_e f_e · P_e.
     me = probs.mean(0)                                # mean router prob [E]

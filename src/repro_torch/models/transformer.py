@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
+from .. import trace
 from ..configs.base import ModelConfig
 from ..sharding.dtensor import is_dtensor, placed_like
 from .attention import (KVCache, PagedKVCache, attention_decode,
@@ -258,30 +259,33 @@ def lm_prefill(params: dict, batch: dict, cfg: ModelConfig,
                s_max: Optional[int] = None):
     """Run the prompt (after its image prefix, if the batch has one),
     return (last-position logits, filled cache)."""
-    x = _embed_inputs(params, batch, cfg)
-    b, s, _ = x.shape
-    s_max = s_max or s
-    positions = torch.arange(s, device=x.device)[None, :]
-    cache = init_lm_cache(cfg, b, s_max, x.device)
-    cap = cache.k.shape[2]
-    w = min(s, cap)
-    for i in range(cfg.num_layers):
-        x, (k, v), _ = _block_fwd(_layer(params["blocks"], i), x, cfg,
-                                  positions, None)
-        if i == 0:      # under a mesh, the cache is placed as its K/V are
-            cache = KVCache(placed_like(cache.k, k, 1),
-                            placed_like(cache.v, v, 1))
-        # Place the prompt K/V tail into a cache of capacity s_max;
-        # ring-align so that position p sits at slot p % s_max (what decode
-        # expects).
-        tail_k, tail_v = k[:, s - w:s], v[:, s - w:s]
-        if w == cap and s % cap:
-            tail_k = torch.roll(tail_k, s % cap, dims=1)
-            tail_v = torch.roll(tail_v, s % cap, dims=1)
-        cache.k[i, :, :w] = tail_k.to(cache.k.dtype)
-        cache.v[i, :, :w] = tail_v.to(cache.v.dtype)
-    x = rms_norm(params["ln_f"], x, cfg.norm_eps)
-    return _unembed(params, x[:, -1:], cfg), cache
+    with trace.span("model.prefill"):
+        x = _embed_inputs(params, batch, cfg)
+        b, s, _ = x.shape
+        s_max = s_max or s
+        positions = torch.arange(s, device=x.device)[None, :]
+        cache = init_lm_cache(cfg, b, s_max, x.device)
+        cap = cache.k.shape[2]
+        w = min(s, cap)
+        for i in range(cfg.num_layers):
+            x, (k, v), _ = _block_fwd(_layer(params["blocks"], i), x, cfg,
+                                      positions, None)
+            if i == 0:  # under a mesh, the cache is placed as its K/V are
+                cache = KVCache(placed_like(cache.k, k, 1),
+                                placed_like(cache.v, v, 1))
+            # Place the prompt K/V tail into a cache of capacity s_max;
+            # ring-align so that position p sits at slot p % s_max (what
+            # decode expects).
+            tail_k, tail_v = k[:, s - w:s], v[:, s - w:s]
+            if w == cap and s % cap:
+                tail_k = torch.roll(tail_k, s % cap, dims=1)
+                tail_v = torch.roll(tail_v, s % cap, dims=1)
+            cache.k[i, :, :w] = tail_k.to(cache.k.dtype)
+            cache.v[i, :, :w] = tail_v.to(cache.v.dtype)
+        with trace.span("model.unembed"):
+            x = rms_norm(params["ln_f"], x, cfg.norm_eps)
+            logits = _unembed(params, x[:, -1:], cfg)
+        return logits, cache
 
 
 def lm_decode_step(params: dict, token: torch.Tensor, cache: KVCache, pos,
@@ -317,16 +321,19 @@ def lm_decode_step_paged(params: dict, token: torch.Tensor,
     """Paged decode: K/V read through ``table`` [B, max_blocks] instead of a
     dense per-slot buffer; identical to :func:`lm_decode_step` over a
     contiguous cache of the same logical capacity."""
-    x = embed(params["embed"], token)
-    for i in range(cfg.num_layers):
-        p = _layer(params["blocks"], i)
-        y_attn, _ = attention_decode_paged(
-            p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps),
-            PagedKVCache(cache.k[i], cache.v[i]), table, pos, cfg)
-        h = x + y_attn
-        x = h + _ffn(p, rms_norm(p["ln2"], h, cfg.norm_eps), cfg)
-    x = rms_norm(params["ln_f"], x, cfg.norm_eps)
-    return _unembed(params, x, cfg), cache
+    with trace.span("model.decode"):
+        x = embed(params["embed"], token)
+        for i in range(cfg.num_layers):
+            p = _layer(params["blocks"], i)
+            y_attn, _ = attention_decode_paged(
+                p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps),
+                PagedKVCache(cache.k[i], cache.v[i]), table, pos, cfg)
+            h = x + y_attn
+            x = h + _ffn(p, rms_norm(p["ln2"], h, cfg.norm_eps), cfg)
+        with trace.span("model.unembed"):
+            x = rms_norm(params["ln_f"], x, cfg.norm_eps)
+            logits = _unembed(params, x, cfg)
+        return logits, cache
 
 
 def lm_prefill_chunk_paged(params: dict, batch: dict, cache: PagedKVCache,
@@ -334,16 +341,19 @@ def lm_prefill_chunk_paged(params: dict, batch: dict, cache: PagedKVCache,
     """Run one chunk of a single request's prompt (tokens [1, c]) against
     its block table, writing the chunk's K/V into the pool.  Returns
     (last-position logits [1, 1, V], the pool)."""
-    x = _embed_inputs(params, batch, cfg)
-    for i in range(cfg.num_layers):
-        p = _layer(params["blocks"], i)
-        attn, _ = attention_prefill_chunk_paged(
-            p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps),
-            PagedKVCache(cache.k[i], cache.v[i]), table_row, start, cfg)
-        h = x + attn
-        x = h + _ffn(p, rms_norm(p["ln2"], h, cfg.norm_eps), cfg)
-    x = rms_norm(params["ln_f"], x, cfg.norm_eps)
-    return _unembed(params, x[:, -1:], cfg), cache
+    with trace.span("model.prefill_chunk"):
+        x = _embed_inputs(params, batch, cfg)
+        for i in range(cfg.num_layers):
+            p = _layer(params["blocks"], i)
+            attn, _ = attention_prefill_chunk_paged(
+                p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps),
+                PagedKVCache(cache.k[i], cache.v[i]), table_row, start, cfg)
+            h = x + attn
+            x = h + _ffn(p, rms_norm(p["ln2"], h, cfg.norm_eps), cfg)
+        with trace.span("model.unembed"):
+            x = rms_norm(params["ln_f"], x, cfg.norm_eps)
+            logits = _unembed(params, x[:, -1:], cfg)
+        return logits, cache
 
 
 def lm_verify_paged(params: dict, tokens: torch.Tensor, cache: PagedKVCache,

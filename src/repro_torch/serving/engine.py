@@ -37,6 +37,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.device.request_scheduler import (AdmissionRejected, BatchPlan,
                                              ContinuousBatcher, Request,
                                              RequestState)
@@ -117,6 +118,13 @@ class ServingEngine:
         self._keys: Dict[int, list] = {}     # rid -> chained block keys
         self.cache_stats = {"hit_tokens": 0, "miss_tokens": 0,
                             "hit_requests": 0, "lookup_requests": 0}
+        #: host-device traffic of the steps: blocking host-to-device copies
+        #: and their bytes, device-to-host reads of sampled tokens, and per
+        #: decode step the KV tokens live in its rows
+        #: (sum of min(pos + 1, cap)) against the width its logical view
+        #: spans (``max_batch * cap``)
+        self.io_stats = {"h2d_copies": 0, "h2d_bytes": 0, "d2h_reads": 0,
+                         "kv_live_tokens": 0, "kv_view_tokens": 0}
         #: rids whose current prefill cycle already hit the stats
         self._stat_seen: set = set()
         #: (token_bytes, keys) memo keyed by content
@@ -340,8 +348,7 @@ class ServingEngine:
         need = self.alloc.blocks_for_tokens(req.prefilled)
         if len(blocks) < need:
             return None
-        idx = torch.as_tensor(blocks[:need], dtype=torch.long,
-                              device=self.device)
+        idx = self._upload(np.asarray(blocks[:need], np.int64))
         return (self.cache.k.index_select(1, idx),
                 self.cache.v.index_select(1, idx))
 
@@ -360,8 +367,8 @@ class ServingEngine:
                                             req.rid):
             return False                     # thief pool full: recompute
         self.alloc.ensure(req.rid, nblk * self.block_size)
-        idx = torch.as_tensor(self.alloc.blocks_of(req.rid)[:nblk],
-                              dtype=torch.long, device=self.device)
+        idx = self._upload(np.asarray(self.alloc.blocks_of(req.rid)[:nblk],
+                                      np.int64))
         self.cache.k.index_copy_(1, idx, k)
         self.cache.v.index_copy_(1, idx, v)
         return True
@@ -370,7 +377,16 @@ class ServingEngine:
         return self.alloc.table_row(rid, self.max_blocks)
 
     def _row_dev(self, rid: int) -> torch.Tensor:
-        return torch.as_tensor(self._table_row(rid), device=self.device)
+        return self._upload(self._table_row(rid))
+
+    def _upload(self, x: np.ndarray) -> torch.Tensor:
+        """``x`` on the device: a blocking copy from pageable host memory,
+        which waits for the work already queued on the stream."""
+        with trace.span("engine.upload", bytes=x.nbytes):
+            out = torch.as_tensor(x, device=self.device)
+        self.io_stats["h2d_copies"] += 1
+        self.io_stats["h2d_bytes"] += x.nbytes
+        return out
 
     def _ensure_blocks(self, req: Request, tokens: int) -> bool:
         """Grow ``req``'s block table to cover ``tokens`` logical tokens,
@@ -632,12 +648,10 @@ class ServingEngine:
             toks = self.prompts[rid][start:start + chunk]
             logits, self.cache = self._prefill_chunk(
                 self.params,
-                {"tokens": torch.as_tensor(toks[None, :], dtype=torch.long,
-                                           device=self.device)},
+                {"tokens": self._upload(toks[None, :].astype(np.int64))},
                 self.cache, self._row_dev(rid), start)
         else:
-            toks = torch.as_tensor(self.prompts[rid][None, :],
-                                   dtype=torch.long, device=self.device)
+            toks = self._upload(self.prompts[rid][None, :].astype(np.int64))
             logits, cache_one = self._prefill(self.params, {"tokens": toks})
             if self.paged:
                 # scatter the dense per-request cache into its blocks
@@ -650,7 +664,9 @@ class ServingEngine:
             if self.prefix_cache and self.batcher.chunk_eligible(req):
                 # every full prompt block is now written: publish the chain
                 self.alloc.publish_prefix(rid, self._keys.get(rid, []))
-            nxt = int(torch.argmax(logits[0, -1]))
+            with trace.span("engine.read"):
+                nxt = int(torch.argmax(logits[0, -1]))
+            self.io_stats["d2h_reads"] += 1
             self.outputs[rid].append(nxt)
             req.generated += 1
             if (self.eos is not None and nxt == self.eos) or \
@@ -668,58 +684,80 @@ class ServingEngine:
         """One engine step: evict, admit+prefill (possibly chunked),
         speculate, decode.  Returns the number of slots stepped (plain and
         speculative)."""
-        plan: BatchPlan = self.batcher.plan_step()
-        for req in plan.evicted:
-            self._clear_slot(req)
-            self._release(req.rid)
-        self._pending_prefill = list(plan.prefill)
-        for req in plan.prefill:
-            self._pending_prefill.remove(req)
-            self._run_prefill(req, plan.prefill_chunks.get(
-                req.rid, req.remaining_prefill))
-        # speculation round first: handled slots emit their tokens through
-        # draft/verify and skip plain decode this step
-        handled: set = set()
-        if self.speculator is not None:
-            handled = self.speculator.round(self)
-        # decode every occupied slot at its OWN position (continuous
-        # batching mixes depths)
-        active = [i for i, r in enumerate(self.slot_req)
-                  if r is not None and i not in handled]
-        if self.paged:
-            # the next write position may cross into a new block
-            for i in list(active):
-                req = self.slot_req[i]
-                if req is None:
-                    continue          # preempted by an earlier iteration
-                if not self._ensure_blocks(
-                        req, int(self.slot_pos[i]) % self.cap + 1):
-                    self._preempt_running(req)   # pool starved: recompute
-                elif self.prefix_cache and not self._cow_for_write(req, i):
-                    self._preempt_running(req)   # fork needed, pool starved
+        with trace.span("engine.step") as attrs:
+            with trace.span("engine.plan"):
+                plan: BatchPlan = self.batcher.plan_step()
+            for req in plan.evicted:
+                self._clear_slot(req)
+                self._release(req.rid)
+            self._pending_prefill = list(plan.prefill)
+            prefill_tokens = 0
+            for req in plan.prefill:
+                self._pending_prefill.remove(req)
+                chunk = plan.prefill_chunks.get(req.rid, req.remaining_prefill)
+                planned = min(chunk, req.remaining_prefill)
+                prefill_tokens += planned
+                with trace.span("engine.prefill", rid=req.rid,
+                                start=req.prefilled, tokens=planned):
+                    self._run_prefill(req, chunk)
+            # speculation round first: handled slots emit their tokens
+            # through draft/verify and skip plain decode this step
+            handled: set = set()
+            if self.speculator is not None:
+                handled = self.speculator.round(self)
+            # decode every occupied slot at its OWN position (continuous
+            # batching mixes depths)
             active = [i for i, r in enumerate(self.slot_req)
                       if r is not None and i not in handled]
-        if active:
-            pos_vec = torch.as_tensor(self.slot_pos, device=self.device)
-            tokens = torch.as_tensor(self.last_token, device=self.device)
             if self.paged:
-                # refresh + re-upload the table only when something moved
-                if self._table_dirty or \
-                        self._alloc_seen != self.alloc.version:
-                    for i in active:
-                        self.table[i] = self._table_row(
-                            self.slot_req[i].rid)
-                    self._table_dev = torch.as_tensor(self.table,
-                                                      device=self.device)
-                    self._alloc_seen = self.alloc.version
-                    self._table_dirty = False
-                logits, self.cache = self._decode(
-                    self.params, tokens, self.cache, self._table_dev,
-                    pos_vec)
-            else:
-                logits, self.cache = self._decode(
-                    self.params, tokens, self.cache, pos_vec)
+                with trace.span("engine.kv_blocks"):
+                    # the next write position may cross into a new block
+                    for i in list(active):
+                        req = self.slot_req[i]
+                        if req is None:
+                            continue    # preempted by an earlier iteration
+                        if not self._ensure_blocks(
+                                req, int(self.slot_pos[i]) % self.cap + 1):
+                            self._preempt_running(req)  # pool starved
+                        elif self.prefix_cache and \
+                                not self._cow_for_write(req, i):
+                            self._preempt_running(req)  # fork, pool starved
+                    active = [i for i, r in enumerate(self.slot_req)
+                              if r is not None and i not in handled]
+            if active:
+                self._decode_active(active)
+            if attrs is not None:
+                attrs.update(decoded=len(active),
+                             prefill_tokens=prefill_tokens)
+        return len(active) + len(handled)
+
+    def _decode_active(self, active: List[int]) -> None:
+        """One decode step of the ``active`` slots: upload their positions
+        and last tokens (and the block table when it moved), run the model,
+        read the argmax back and emit it."""
+        pos_vec = self._upload(self.slot_pos)
+        tokens = self._upload(self.last_token)
+        if self.paged:
+            # refresh + re-upload the table only when something moved
+            if self._table_dirty or self._alloc_seen != self.alloc.version:
+                for i in active:
+                    self.table[i] = self._table_row(self.slot_req[i].rid)
+                self._table_dev = self._upload(self.table)
+                self._alloc_seen = self.alloc.version
+                self._table_dirty = False
+            io = self.io_stats
+            io["kv_live_tokens"] += int(np.minimum(
+                self.slot_pos[active] + 1, self.cap).sum())
+            io["kv_view_tokens"] += len(self.slot_req) * self.cap
+            logits, self.cache = self._decode(
+                self.params, tokens, self.cache, self._table_dev, pos_vec)
+        else:
+            logits, self.cache = self._decode(
+                self.params, tokens, self.cache, pos_vec)
+        with trace.span("engine.read"):
             nxt = torch.argmax(logits[:, -1], dim=-1).tolist()
+        self.io_stats["d2h_reads"] += 1
+        with trace.span("engine.emit"):
             for i in active:
                 req = self.slot_req[i]
                 tok = nxt[i]
@@ -733,7 +771,6 @@ class ServingEngine:
                     req.finished_at = time.monotonic()
                     self._clear_slot(req)
                     self._release(req.rid)
-        return len(active) + len(handled)
 
     def run_until_drained(self, max_steps: int = 10_000
                           ) -> Dict[int, List[int]]:
