@@ -69,6 +69,14 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      to x = 5, whole steps at exactly 0 and 1); every row run twice for the
      same bits; kernel and plain version each also against the recurrence
      in fp64 on a few heads; the kernel's device time;
+   - the MoE route, dispatch and combine (``phase_moe_dispatch``) at
+     Mixtral-8x22B's decode (T = 32, the engine's batch) and chunk
+     (T = 512) and at kimi-k2-1t-a32b's decode (T = 8) and 1024-token
+     chunk, dropless with restealing, bf16: the route's experts equal
+     ``route_topk``'s, the plan equal to ``priority_dispatch``'s on the
+     kernel's routing, the combine's bits those of
+     ``combine_expert_outputs``, twice; kernels a call, device ms and the
+     host's microseconds to issue the three steps, fused against plain;
    - the prefix scan: kernel_bench's (4, 1024) and (8, 8192), R = N = 4096
      in fp32, int32 (exact) and bf16 (one tile a row), and rows that the
      look-back chains: four of 2^22, one of 2^20 + 13 (ragged), one of 2^24
@@ -267,7 +275,8 @@ a MoE layer).  ``launches`` counts
 wrapper calls that launched the kernel route: a flash decode (the split
 pass and, with several splits, the combine pass) and a grouped SwiGLU (its
 two phases) each count once.  ``kernel_launches`` counts the kernels those
-calls launched.
+calls launched.  ``moe_dispatch`` (route, dispatch and combine) counts
+once a MoE layer call on every path with flash on, as grouped SwiGLU does.
 
 Two lines before the last is the JSON record of the kernels, of the
 speculative phases (``spec``), of the cluster phases (``cluster``), of the
@@ -326,6 +335,9 @@ from repro_torch.core.device.moe_balance import (  # noqa: E402
 from repro_torch.kernels.flash_attention import build, ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_plain)
+from repro_torch.kernels.moe_dispatch import build as md_build  # noqa: E402
+from repro_torch.kernels.moe_dispatch import ops as md_ops  # noqa: E402
+from repro_torch.kernels.moe_dispatch import ref as md_ref  # noqa: E402
 from repro_torch.kernels.moe_gmm import build as gmm_build  # noqa: E402
 from repro_torch.kernels.moe_gmm import ops as gmm_ops  # noqa: E402
 from repro_torch.kernels.moe_gmm.ref import (  # noqa: E402
@@ -375,6 +387,10 @@ KERNEL = dict(name="flash_attention", route="cuda",
 GMM_KERNEL = dict(name="grouped_swiglu", route="cuda",
                   source="src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
                   replaces="src/repro/kernels/moe_gmm/kernel.py:53")
+MOE_DISPATCH_KERNEL = dict(
+    name="moe_dispatch", route="cuda",
+    source="src/repro_torch/kernels/moe_dispatch/csrc/moe_dispatch.cu",
+    replaces="none: XLA fuses src/repro/models/moe.py::moe_fwd's dispatch")
 WKV_KERNEL = dict(name="wkv6", route="cuda",
                   source="src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
                   replaces="src/repro/kernels/wkv6/kernel.py:67")
@@ -387,6 +403,7 @@ SCAN_KERNEL = dict(name="prefix_scan", route="cuda",
 #: kernels launched
 COUNTERS = {"flash_attention": ops.flash_attention,
             "grouped_swiglu": gmm_ops.grouped_swiglu,
+            "moe_dispatch": md_ops.moe_dispatch,
             "wkv6": wkv_ops.wkv6,
             "prefix_scan": scan_ops.prefix_scan}
 #: max |logit| difference the reference allows its bf16 path between two
@@ -545,7 +562,8 @@ def phase_device() -> str:
 def phase_build() -> None:
     """Every library at once: one nvcc each, started together."""
     libs = {"flash_attention": build.LIBRARY, "moe_gmm": gmm_build.LIBRARY,
-            "wkv6": wkv_build.LIBRARY, "prefix_scan": scan_build.LIBRARY}
+            "wkv6": wkv_build.LIBRARY, "prefix_scan": scan_build.LIBRARY,
+            "moe_dispatch": md_build.LIBRARY}
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(lib.build) for name, lib in libs.items()}
         built = {name: f.result() for name, f in futures.items()}
@@ -1060,6 +1078,120 @@ def _gmm_rows(cases, plain_experts=None) -> list:
               f"{rows[-1]['device_ms']} ms, bmm "
               f"{rows[-1]['library_device_ms']} ms; bound {bound_ms} ms "
               f"({bound_by}), load {load.tolist()}")
+    return rows
+
+
+#: the MoE dispatch phase: (path, case, T, E, k, D)
+MOE_DISPATCH_SHAPES = (
+    ("mixtral-8x22b", "mixtral_decode", 32, 8, 2, 6144),
+    ("mixtral-8x22b", "mixtral_chunk", 512, 8, 2, 6144),
+    ("kimi-k2-1t-a32b", "kimi_decode", 8, 384, 8, 7168),
+    ("kimi-k2-1t-a32b", "kimi_chunk", 1024, 384, 8, 7168))
+
+
+def _issue_us(fn, reps: int = 30) -> float:
+    """Median host microseconds to issue one call (the device idle before
+    each, so no full launch queue blocks the host)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
+def _kernels_a_call(fn) -> int:
+    """Kernels (and memsets, copies) one call puts on the card."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def phase_moe_dispatch(seed: int) -> list:
+    """``moe_route``, ``moe_dispatch`` and ``moe_combine`` against the plain
+    functions at ``MOE_DISPATCH_SHAPES``, bf16, dropless (capacity T) with
+    restealing and the priority policy, as the configurations run them;
+    the expert outputs random.  Fails unless the route's experts equal
+    ``route_topk``'s (the probabilities within 1e-6; whether they are
+    bitwise equal is reported), the plan equals ``priority_dispatch``'s on
+    the kernel's routing (gates and aux loss within 1e-6), the buffer
+    ``gather_expert_inputs``'s, and the combine the plain bits, twice."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 29)
+    rows = []
+    for path, case, t, e, k, d in MOE_DISPATCH_SHAPES:
+        x = torch.randn(t, d, generator=g, device="cuda").bfloat16()
+        w = torch.randn(d, e, generator=g, device="cuda") / d ** 0.5
+        logits = x.float() @ w
+        y = torch.randn(e, t, d, generator=g, device="cuda").bfloat16()
+        kw = dict(num_experts=e, capacity=t, resteal=True)
+
+        def fused():
+            r = md_ops.moe_route(logits, k)
+            sent = md_ops.moe_dispatch(x, r, **kw)
+            return r, sent, md_ops.moe_combine(y, sent, t, k)
+
+        def plain():
+            r = md_ref.moe_route_plain(logits, k)
+            sent = md_ref.moe_dispatch_plain(x, r, **kw)
+            return r, sent, md_ref.moe_combine_plain(y, sent, t, k)
+
+        r, sent, got = fused()
+        pr, psent, want = plain()
+        torch.cuda.synchronize()
+        if not torch.equal(r.expert_idx, pr.expert_idx):
+            raise AssertionError(f"moe_route {case}: experts differ")
+        route_err = max((r.gate - pr.gate).abs().max().item(),
+                        (r.probs - pr.probs).abs().max().item())
+        plan = priority_dispatch(*r[:3], **kw)
+        same = {n: torch.equal(getattr(sent.plan, n), getattr(plan, n))
+                for n in ("slot_src", "kept", "expert", "load")}
+        aux = md_ref.aux_loss_plain(r.probs, plan.load, e)
+        errs = dict(route=route_err,
+                    gate=(sent.plan.gate - plan.gate).abs().max().item(),
+                    aux=abs(sent.aux_loss.item() - aux.item()))
+        combine_bits = torch.equal(
+            got, md_ref.moe_combine_plain(y, sent._replace(plan=plan), t, k))
+        buf_equal = torch.equal(sent.buf,
+                                gather_expert_inputs(x, plan, k))
+        if not (all(same.values()) and max(errs.values()) <= 1e-6
+                and combine_bits and buf_equal
+                and torch.equal(got, fused()[2])):
+            raise AssertionError(f"moe_dispatch {case}: plan {same}, errors "
+                                 f"{errs}, combine bits {combine_bits}, "
+                                 f"buffer {buf_equal}")
+        rows.append(dict(
+            MOE_DISPATCH_KERNEL, case=f"{case}/bfloat16", path=path,
+            shape=dict(T=t, E=e, k=k, C=t, D=d),
+            probs_bitwise=bool(torch.equal(r.probs, pr.probs)),
+            gate_bitwise=bool(torch.equal(r.gate, pr.gate)),
+            output_max_err=(got.float() - want.float()).abs().max().item(),
+            max_err=max(errs.values()),
+            kernels=_kernels_a_call(fused), plain_kernels=_kernels_a_call(
+                plain),
+            ms=_time_ms(fused), plain_ms=_time_ms(plain),
+            device_ms=_device_ms(fused, reps=5),
+            plain_device_ms=_device_ms(plain, reps=5),
+            host_us=_issue_us(fused), plain_host_us=_issue_us(plain)))
+        row = rows[-1]
+        print(f"kernel moe_dispatch {row['case']} T={t} E={e} k={k} D={d}: "
+              f"plan equal, combine bits equal; probs bitwise "
+              f"{row['probs_bitwise']}, gate bitwise {row['gate_bitwise']}, "
+              f"max err {row['max_err']}; kernels {row['kernels']} "
+              f"(plain {row['plain_kernels']}); {row['ms']} ms (plain "
+              f"{row['plain_ms']}), device {row['device_ms']} ms (plain "
+              f"{row['plain_device_ms']}); host {row['host_us']} us to "
+              f"issue (plain {row['plain_host_us']})")
+        del x, y, logits, r, sent, got, pr, psent, want, plan
+        gc.collect()
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2055,12 +2187,12 @@ def phase_rwkv_checks(model, params, prompts) -> dict:
 
 
 def _last_token_experts(record: list):
-    """Wraps ``models.moe.route_topk`` while it is in use: appends, for
+    """Wraps ``models.moe.moe_route`` while it is in use: appends, for
     every MoE layer's routing, the last token's chosen experts (sorted)."""
-    inner = moe_mod.route_topk
+    inner = moe_mod.moe_route
 
-    def route(logits, k):
-        out = inner(logits, k)
+    def route(logits, k, alt=False):
+        out = inner(logits, k, alt)
         record.append(sorted(out[0][-1].tolist()))
         return out
     return route
@@ -2088,16 +2220,16 @@ def phase_hybrid_handoff(model, params, prompts, bound_rel=None) -> dict:
         toks = torch.as_tensor(p[None, :], device="cuda")
         whole_route, step_route = [], []
         try:
-            moe_mod.route_topk = _last_token_experts(whole_route)
+            moe_mod.moe_route = _last_token_experts(whole_route)
             whole, _ = model.prefill(params, {"tokens": toks})
-            moe_mod.route_topk = route_topk
+            moe_mod.moe_route = md_ops.moe_route
             _, cache = model.prefill(params, {"tokens": toks[:, :-1]},
                                      toks.shape[1])
-            moe_mod.route_topk = _last_token_experts(step_route)
+            moe_mod.moe_route = _last_token_experts(step_route)
             stepped, _ = model.decode_step(params, toks[:, -1:], cache,
                                            toks.shape[1] - 1)
         finally:
-            moe_mod.route_topk = route_topk
+            moe_mod.moe_route = md_ops.moe_route
         if not (torch.isfinite(whole).all() and torch.isfinite(stepped).all()):
             raise AssertionError("non-finite logits")
         out["err"].append((whole.float() - stepped.float()).abs().max()
@@ -2203,7 +2335,7 @@ def phase_decoder(arch, rng, seed) -> tuple:
     n = cfg.num_layers
     kernels = {"flash_attention": (n, n)}
     if cfg.num_experts:
-        kernels["grouped_swiglu"] = (n, n)
+        kernels["grouped_swiglu"] = kernels["moe_dispatch"] = (n, n)
     stats = phase_main_path(model, params, prompts, s_max=s_max,
                             max_new=max_new, kv_mode="paged",
                             kernels=kernels)
@@ -2985,6 +3117,7 @@ def main() -> int:
     flash_rows = phase_kernels(args.seed)
     phase_flash_probe()
     gmm_rows = phase_gmm_kernel(args.seed)
+    moe_rows = phase_moe_dispatch(args.seed)
     wkv_rows = phase_wkv6_kernel(args.seed)
     scan_rows = phase_scan_kernel(args.seed)
     scan_path = phase_scan_path(args.seed)
@@ -3045,7 +3178,8 @@ def main() -> int:
     mixtral = phase_main_path(model, params, prompts, s_max=1024,
                               max_new=16, kv_mode="paged",
                               kernels={"flash_attention": (layers, layers),
-                                       "grouped_swiglu": (layers, layers)})
+                                       "grouped_swiglu": (layers, layers),
+                                       "moe_dispatch": (layers, layers)})
     phase_paged_equals_contiguous(model, params, prompts[:4], 1024)
     spec["mixtral-8x22b"] = phase_spec(
         model, params, prompts, s_max=1024, max_new=16, moe=True, drafts=[
@@ -3092,7 +3226,8 @@ def main() -> int:
     jamba = phase_main_path(model, params, prompts, s_max=2048, max_new=16,
                             kv_mode="paged",
                             kernels={"flash_attention": (n_sb, n_sb),
-                                     "grouped_swiglu": (moe, moe)})
+                                     "grouped_swiglu": (moe, moe),
+                                     "moe_dispatch": (moe, moe)})
     phase_paged_equals_contiguous(model, params, prompts[:4], 2048)
     handoff = {"bf16": phase_hybrid_handoff(model, params, prompts[:4]),
                "bf16_bound": BF16_LOGIT_TOL}
@@ -3211,7 +3346,7 @@ def main() -> int:
     own_runs["qwen2-1.5b trained, served"] = train["served"]["launches"]
     for name, run in examples["full_width"].items():
         own_runs[f"example {name}"] = run["launches"]
-    rows = flash_rows + gmm_rows + wkv_rows + scan_rows
+    rows = flash_rows + gmm_rows + moe_rows + wkv_rows + scan_rows
     for row in rows:
         if "kernel_route" in row and row["case"].endswith("/float32"):
             n = {run: c[(row["name"], row["kernel_route"])]

@@ -7,7 +7,10 @@ restealing = idle experts stealing shed work.
 
 Expert compute is a grouped SwiGLU over the dispatch buffers
 ([E, C, D] × [E, D, F]): the hand-written kernel (``kernels/moe_gmm``) with
-``use_kernel``, else the einsum path of the reference.
+``use_kernel``, else the einsum path of the reference.  With ``use_kernel``
+route, dispatch and combine go through ``kernels/moe_dispatch`` too (its
+kernels on CUDA, the plain functions on the CPU); without it (training:
+the gate's gradient needs autograd) they are the plain functions.
 """
 from __future__ import annotations
 
@@ -19,9 +22,9 @@ import torch.nn.functional as F
 
 from .. import trace
 from ..configs.base import ModelConfig
-from ..core.device.moe_balance import (combine_expert_outputs,
-                                       gather_expert_inputs,
-                                       priority_dispatch, route_topk)
+from ..kernels.moe_dispatch import moe_combine, moe_dispatch, moe_route
+from ..kernels.moe_dispatch.ref import (moe_combine_plain,
+                                        moe_dispatch_plain, moe_route_plain)
 from ..kernels.moe_gmm import grouped_swiglu
 from ..sharding.dtensor import like, replicated_local
 from .layers import init_linear
@@ -89,25 +92,27 @@ def moe_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig,
     # no DTensor sharding strategy) and the combine run on all-gathered
     # plain tensors; the dispatch buffer rejoins the mesh replicated, and
     # the expert FFN runs against the sharded expert weights.
+    if use_kernel:
+        route, dispatch, combine = moe_route, moe_dispatch, moe_combine
+    else:
+        route, dispatch, combine = (moe_route_plain, moe_dispatch_plain,
+                                    moe_combine_plain)
+    resteal = cfg.dispatch_resteal
     with trace.span("moe.route"):
         logits = replicated_local(xt.float() @ p["router"]["w"])
-        expert_idx, gate, probs = route_topk(logits, k)
+        # the next choice only where restealing can move an assignment
+        routing = route(logits, k, resteal and cap < t)
     with trace.span("moe.dispatch"):
-        plan = priority_dispatch(expert_idx, gate, probs, num_experts=e,
-                                 capacity=cap, policy=cfg.dispatch_policy,
-                                 resteal=cfg.dispatch_resteal)
-        buf = like(gather_expert_inputs(replicated_local(xt), plan, k), x)
+        sent = dispatch(replicated_local(xt), routing, num_experts=e,
+                        capacity=cap, policy=cfg.dispatch_policy,
+                        resteal=resteal)
+        buf = like(sent.buf, x)
     with trace.span("moe.experts"):
-        buf = _expert_ffn(p, buf, use_kernel, plan.load)   # [E, C, D]
+        buf = _expert_ffn(p, buf, use_kernel, sent.plan.load)   # [E, C, D]
     with trace.span("moe.combine"):
-        y = like(combine_expert_outputs(replicated_local(buf), plan, t, k),
-                 x).to(x.dtype)
+        y = like(combine(replicated_local(buf), sent, t, k), x).to(x.dtype)
 
-    # Switch-style load-balance aux loss: E * Σ_e f_e · P_e.
-    me = probs.mean(0)                                # mean router prob [E]
-    ce = plan.load.float() / torch.clamp(plan.load.sum(), min=1)
-    aux = e * torch.sum(me * ce)
-    stats = MoEStats(load=like(plan.load, x),
-                     dropped_mass=like(plan.dropped_mass, x),
-                     aux_loss=like(aux, x))
+    stats = MoEStats(load=like(sent.plan.load, x),
+                     dropped_mass=like(sent.plan.dropped_mass, x),
+                     aux_loss=like(sent.aux_loss, x))
     return y.reshape(orig_shape), stats

@@ -4,12 +4,16 @@ JAX, so it runs on a machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+from itertools import product
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+from repro_torch.kernels.moe_dispatch import ops as md_ops
+from repro_torch.kernels.moe_dispatch import ref as md_ref
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.kernels.moe_gmm.ref import grouped_swiglu_plain
 from repro_torch.kernels.prefix_scan import ops as scan_ops
@@ -519,6 +523,157 @@ def test_moe_combine_k8_on_card(t, e, k, cap):
     cpu = mb.combine_expert_outputs(
         y.cpu(), mb.DispatchPlan(*(a.cpu() for a in plan)), t, k)
     torch.testing.assert_close(got.cpu(), cpu, rtol=1e-6, atol=1e-6)
+
+
+#: (T, E, k, C): Mixtral's decode (T = max_batch) and chunk, Jamba's 16
+#: experts at a 1024-token prefill, Kimi's 384 at decode and at a
+#: 1024-token chunk, all dropless; then droppy shapes (Mixtral at capacity
+#: 6, and the odd shapes of the CPU plan tests)
+MOE_DISPATCH_CASES = [(32, 8, 2, 32), (512, 8, 2, 512), (1024, 16, 2, 1024),
+                      (8, 384, 8, 8), (1024, 384, 8, 1024), (48, 8, 2, 6),
+                      (33, 5, 3, 4), (17, 12, 1, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("t,e,k,cap", MOE_DISPATCH_CASES)
+def test_moe_dispatch_matches_plain_on_card(t, e, k, cap, ties):
+    """The route kernel against ``route_topk`` on the card: the same
+    experts, gates and probabilities within 1e-6, the next choice that of
+    the stable sort.  The plan, for both policies with and without
+    restealing, against ``priority_dispatch`` on the kernel's routing:
+    ``slot_src``, ``kept``, ``expert`` and ``load`` equal, ``gate``,
+    ``dropped_mass`` (relative: summed in another order) and the aux loss
+    within 1e-6; the buffer equal to ``gather_expert_inputs``'s.  The
+    combine, bf16 and fp32: the bits of ``combine_expert_outputs`` on the
+    card, and the same bits from a second call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.core.device import moe_balance as mb
+    rng = np.random.default_rng(t * 7 + e + k)
+    logits = (rng.integers(-2, 3, (t, e)) if ties
+              else rng.standard_normal((t, e)) * 2).astype(np.float32)
+    logits = torch.from_numpy(logits).cuda()
+    g = torch.Generator(device="cuda").manual_seed(t + e)
+    routing = md_ops.moe_route(logits, k, alt=True)
+    idx, gate, probs = mb.route_topk(logits, k)
+    assert torch.equal(routing.expert_idx, idx)
+    torch.testing.assert_close(routing.gate, gate, rtol=0, atol=1e-6)
+    torch.testing.assert_close(routing.probs, probs, rtol=0, atol=1e-6)
+    alt_e, alt_p = md_ref.route_alt_plain(routing.probs.cpu(), k)
+    assert torch.equal(routing.alt_expert.cpu(), alt_e)
+    assert torch.equal(routing.alt_prob.cpu(), alt_p)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(t, 64, generator=g, device="cuda").to(dtype)
+        y = torch.randn(e, cap, 64, generator=g, device="cuda").to(dtype)
+        for policy, resteal in product(("priority", "arrival"),
+                                       (False, True)):
+            kw = dict(num_experts=e, capacity=cap, policy=policy,
+                      resteal=resteal)
+            case = (dtype, policy, resteal)
+            sent = md_ops.moe_dispatch(x, routing, **kw)
+            plan = mb.priority_dispatch(*routing[:3], **kw)
+            for name in ("slot_src", "kept", "expert", "load"):
+                assert torch.equal(getattr(sent.plan, name),
+                                   getattr(plan, name)), (name, case)
+            torch.testing.assert_close(sent.plan.gate, plan.gate, rtol=0,
+                                       atol=1e-6)
+            torch.testing.assert_close(sent.plan.dropped_mass,
+                                       plan.dropped_mass, rtol=1e-6,
+                                       atol=1e-6)
+            torch.testing.assert_close(
+                sent.aux_loss, md_ref.aux_loss_plain(routing.probs,
+                                                     plan.load, e),
+                rtol=0, atol=1e-6)
+            assert torch.equal(sent.buf, mb.gather_expert_inputs(x, plan, k))
+            got = md_ops.moe_combine(y, sent, t, k)
+            assert torch.equal(got, mb.combine_expert_outputs(y, plan, t, k)
+                               ), case
+            assert torch.equal(got, md_ops.moe_combine(y, sent, t, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,e,k,cap", [(48, 8, 2, 6), (512, 8, 2, 512)])
+def test_moe_dispatch_global_lists_on_card(t, e, k, cap, monkeypatch):
+    """An expert's list past ``RANK_SMEM_LIMIT`` bytes goes to a global
+    scratch instead of shared memory (T > 20480 in one pass): with the
+    limit at 0 the plan and buffer are those of the shared-memory lists,
+    both policies, with and without restealing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(t)
+    logits = torch.randn(t, e, generator=g, device="cuda") * 2
+    x = torch.randn(t, 64, generator=g, device="cuda").bfloat16()
+    routing = md_ops.moe_route(logits, k, alt=True)
+    for policy, resteal in product(("priority", "arrival"), (False, True)):
+        kw = dict(num_experts=e, capacity=cap, policy=policy,
+                  resteal=resteal)
+        want = md_ops.moe_dispatch(x, routing, **kw)
+        with monkeypatch.context() as m:
+            m.setattr(md_ops, "RANK_SMEM_LIMIT", 0)
+            got = md_ops.moe_dispatch(x, routing, **kw)
+        for a, b in zip(got.plan, want.plan):
+            assert torch.equal(a, b), (policy, resteal)
+        assert torch.equal(got.buf, want.buf)
+        assert torch.equal(got.slot, want.slot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropless", [True, False])
+def test_moe_fwd_launches_on_card(dropless):
+    """One ``moe_fwd`` call with ``use_kernel`` (a scaled Mixtral in bf16,
+    restealing on; droppy: capacity < T, so both rank passes run) launches
+    at most 5 kernels besides the router GEMM (with its cast of x to fp32)
+    and grouped SwiGLU's two, as the profiler sees them and as the
+    wrapper's counters count them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.configs import get_config, scale_down
+    from repro_torch.models import moe
+    cfg = scale_down(get_config("mixtral-8x22b")).replace(
+        moe_dropless=dropless, use_flash=True)
+    assert cfg.dispatch_resteal
+    p = moe.init_moe(torch.Generator(device="cuda").manual_seed(0), cfg)
+    x = torch.randn(4, 8, cfg.d_model, device="cuda").bfloat16()
+
+    def kernels(fn):
+        """The kernels of one call of ``fn``, from a profiled window that
+        saw some (now and then the profiler returns a window with no
+        device events at all: it is taken again, 3 times in all)."""
+        fn()                                           # build and load
+        torch.cuda.synchronize()
+        for _ in range(3):
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            names = [ev.name for ev in prof.events()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA]
+            if names:
+                return names
+        raise AssertionError("the profiler saw no device events")
+
+    def layer():
+        return moe.moe_fwd(p, x, cfg, use_kernel=True)
+
+    with torch.no_grad():
+        router = kernels(lambda: x.reshape(-1, cfg.d_model).float()
+                         @ p["router"]["w"])
+        names = kernels(layer)
+        n0 = md_ops.moe_dispatch.launches
+        k0 = md_ops.moe_dispatch.kernel_launches
+        y, stats = layer()
+        torch.cuda.synchronize()
+    ours = [n for n in names if "moe_" in n]
+    gmm = [n for n in names if "gmm_" in n]
+    assert len(ours) == (4 if dropless else 5), names
+    assert len(gmm) == 2, names
+    # the rest is the router's GEMM and its cast (cuBLAS may pick another
+    # algorithm for another call of the same shapes)
+    assert len(names) - len(ours) - len(gmm) <= len(router), (names, router)
+    assert md_ops.moe_dispatch.launches == n0 + 1
+    assert md_ops.moe_dispatch.kernel_launches == k0 + len(ours)
+    assert torch.isfinite(y).all() and int(stats.load.sum()) > 0
 
 
 def _wrapper_call(name):
