@@ -2,12 +2,12 @@
 seed of the requests that were due in the window and finished, with the
 longest of them in it and one that held a slot in the upper half of the
 batch, until it holds the cell's number of requests and some hundreds of
-served tokens.  The
-plain reference (``bench/reference``) runs once over each prompt with its
-served tokens, from the benchmark's own weights, and each served token is
-judged by its gap: how far its reference logit lies below the reference's
-best at that position.  Greedy decoding serves the best token of its own
-logits, so a sound bf16 program leaves gaps of rounding size only.
+served tokens.  The plain reference (the cell's family's
+``forward_logits``) runs once over each prompt with its served tokens,
+from the benchmark's own weights, and each served token is judged by its
+gap: how far its reference logit lies below the reference's best at that
+position.  Greedy decoding serves the best token of its own logits, so a
+sound bf16 program leaves gaps of rounding size only.
 
 The numbers compared, each against a limit in the cell's file:
 
@@ -26,8 +26,6 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
-
-from ..reference import forward_logits
 
 __all__ = ["draw_sample", "judge", "control_numbers",
            "gap_numbers", "reference_inputs"]
@@ -96,13 +94,13 @@ def gap_numbers(ref: Sequence[torch.Tensor],
     return _summary(*_gaps(ref, tokens))
 
 
-def control_numbers(weights, sizes, seqs, rows, ref=None) -> dict:
-    """The numbers of the float8 reference in the program's place: at each
-    position the token it puts first, judged by the fp32 reference
-    (``ref``, computed here when not given)."""
+def control_numbers(family, weights, sizes, seqs, rows, ref=None) -> dict:
+    """The numbers of the family's float8 reference in the program's
+    place: at each position the token it puts first, judged by the fp32
+    reference (``ref``, computed here when not given)."""
     if ref is None:
-        ref = forward_logits(weights, sizes, seqs, rows)
-    ctrl = forward_logits(weights, sizes, seqs, rows, quant="fp8")
+        ref = family.forward_logits(weights, sizes, seqs, rows)
+    ctrl = family.forward_logits(weights, sizes, seqs, rows, quant="fp8")
     return gap_numbers(ref, [c.argmax(dim=1) for c in ctrl])
 
 

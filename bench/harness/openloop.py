@@ -67,6 +67,12 @@ class Records:
     #: where a traced run's slices began: after the window closed and its
     #: requests had their first tokens (None: an untraced run)
     traced_from: Optional[float] = None
+    #: the program's spans (``repro_torch.trace.Span``) of a traced run's
+    #: program slice, and the engine's counters (``io_stats``, ``steps``,
+    #: the time ``t``) at its start and end (None: no program slice ran)
+    spans: list = field(default_factory=list)
+    io_open: Optional[dict] = None
+    io_close: Optional[dict] = None
 
     def in_window(self, t: float) -> bool:
         return self.window_open <= t < self.window_close

@@ -6,8 +6,12 @@ Layout, from the root of a checkout:
 * ``BENCHMARK.json``: the cells, which configuration and traffic mix each
   names, and the metrics each reports (an entry's ``workloads`` key, or
   every cell);
-* ``bench/configs/<config>.json``: the sizes as run, with ``source``,
-  ``reduced``, ``assumed`` and ``deployment``;
+* ``bench/configs/<config>.json``: the sizes as run, with ``family``,
+  ``source``, ``reduced``, ``assumed`` and ``deployment``;
+* ``bench/families/<family>.py``: the architecture: the port's fields and
+  the sizes read from the configuration file, the weight tree, the plain
+  reference, the model FLOPs and the attention-layer count
+  (``bench/families/__init__.py``);
 * ``bench/workloads/<cell>.json``: the rate, the engine's settings, the
   phases of a run and the limits of the comparison;
 * ``bench/traffic/<traffic>.json``: the classes of the mix, read by the one
@@ -20,6 +24,7 @@ import importlib.util
 import json
 from dataclasses import dataclass, field
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, List
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
@@ -40,6 +45,7 @@ class Cell:
     config: dict
     workload: dict
     traffic: dict
+    family: ModuleType
     end_to_end: List[Metric] = field(default_factory=list)
     per_layer: List[Metric] = field(default_factory=list)
 
@@ -49,14 +55,24 @@ def _json(path: Path) -> dict:
         return json.load(f)
 
 
-def load_reader(name: str, bench_dir: Path = BENCH_DIR) -> Callable:
-    """``read`` of ``bench/metrics/<name>.py``."""
-    path = bench_dir / "metrics" / f"{name}.py"
+def _module(kind: str, name: str, bench_dir: Path) -> ModuleType:
+    """``bench/<kind>/<name>.py``, loaded by path."""
+    path = bench_dir / kind / f"{name}.py"
     spec = importlib.util.spec_from_file_location(
-        "bench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        f"bench_{kind}_" + name.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_reader(name: str, bench_dir: Path = BENCH_DIR) -> Callable:
+    """``read`` of ``bench/metrics/<name>.py``."""
+    return _module("metrics", name, bench_dir).read
+
+
+def load_family(name: str, bench_dir: Path = BENCH_DIR) -> ModuleType:
+    """The architecture family ``bench/families/<name>.py``."""
+    return _module("families", name, bench_dir)
 
 
 def _metrics(entries: List[dict], cell: str, bench_dir: Path
@@ -72,7 +88,8 @@ def _metrics(entries: List[dict], cell: str, bench_dir: Path
 
 def load_cell(name: str, root: Path = ROOT) -> Cell:
     """The cell ``name`` of ``root/BENCHMARK.json``, with its configuration,
-    workload and traffic files and the readers of its metrics."""
+    workload and traffic files, its configuration's family and the readers
+    of its metrics."""
     bench_dir = root / "bench"
     spec = _json(root / "BENCHMARK.json")
     cells = {w["name"]: w for w in spec["workloads"]}
@@ -90,5 +107,6 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
                              f"{workload[key]!r}")
     traffic = _json(bench_dir / "traffic" / f"{entry['traffic']}.json")
     return Cell(name, int(entry["chips"]), config, workload, traffic,
+                load_family(config["family"], bench_dir),
                 _metrics(spec["end_to_end"], name, bench_dir),
                 _metrics(spec["per_layer"], name, bench_dir))

@@ -4,7 +4,8 @@ that decides ``correct``, the metrics, and the result's last line.
 Set-up (``setup_s``) runs from the process's start until the window
 opens: imports, the weights made on the device from the seed, the engine
 and its KV pool, a warm-up request through the chunk and decode paths, and
-the lead-in of the cell's own traffic.
+the lead-in of the cell's own traffic.  Everything of the architecture
+(its sizes, weights, reference and counts) comes from the cell's family.
 """
 from __future__ import annotations
 
@@ -18,13 +19,12 @@ from typing import Optional
 import torch
 
 from . import compare
-from ..reference import forward_logits
 from .openloop import Records, drive
 from .registry import Cell
 from .traffic import schedule
 from .weights import make_weights
 
-__all__ = ["sizes_of", "port_config", "setup", "serve",
+__all__ = ["port_config", "setup", "serve",
            "release", "run_cell", "process_start", "foreign_modules",
            "FORBIDDEN"]
 
@@ -35,21 +35,6 @@ FIRST_WAIT_S = 10.0
 #: top-level module names that may not be loaded once the window closes:
 #: JAX and the JAX package the port was made from
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
-
-#: the configuration file's keys (Hugging Face's names) and the port's
-#: ``ModelConfig`` fields they set
-_PORT_FIELDS = {"hidden_size": "d_model", "intermediate_size": "d_ff",
-                "num_attention_heads": "num_heads",
-                "num_key_value_heads": "num_kv_heads",
-                "head_dim": "head_dim", "num_hidden_layers": "num_layers",
-                "vocab_size": "vocab_size", "rope_theta": "rope_theta",
-                "rms_norm_eps": "norm_eps",
-                "sliding_window": "sliding_window",
-                "num_local_experts": "num_experts",
-                "num_experts_per_tok": "num_experts_per_tok",
-                "tie_word_embeddings": "tie_embeddings",
-                "torch_dtype": "dtype"}
-
 
 def process_start() -> float:
     """The process's start on the monotonic clock (Linux ``/proc``)."""
@@ -67,33 +52,13 @@ def foreign_modules() -> list:
                   & set(FORBIDDEN))
 
 
-def sizes_of(config: dict) -> dict:
-    """The sizes the reference, the weights and the counts read."""
-    return {"d_model": config["hidden_size"],
-            "d_ff": config["intermediate_size"],
-            "num_heads": config["num_attention_heads"],
-            "num_kv_heads": config["num_key_value_heads"],
-            "head_dim": config["head_dim"],
-            "num_layers": config["num_hidden_layers"],
-            "vocab_size": config["vocab_size"],
-            "rope_theta": float(config["rope_theta"]),
-            "norm_eps": float(config["rms_norm_eps"]),
-            "sliding_window": config.get("sliding_window"),
-            "num_experts": config.get("num_local_experts", 0),
-            "top_k": config.get("num_experts_per_tok", 0),
-            "dtype": config["torch_dtype"]}
-
-
-def port_config(config: dict):
+def port_config(family, config: dict):
     """The port's ``ModelConfig`` for the file: its registered
-    architecture with every size of the file, the hand-written kernels on,
-    dropless MoE dispatch (every token to its k experts)."""
+    architecture with every field the family reads from the file, the
+    hand-written kernels on, dropless MoE dispatch (every token to its k
+    experts)."""
     from repro_torch.configs import get_config
-    kw = {f: config[k] for k, f in _PORT_FIELDS.items() if k in config}
-    if config.get("num_local_experts"):
-        kw["moe_d_ff"] = config["intermediate_size"]
-    if config.get("tie_word_embeddings"):
-        raise ValueError("the reference has an untied output head")
+    kw = family.port_fields(config)
     kw["param_dtype"] = kw["dtype"]
     return get_config(config["arch"]).replace(use_flash=True,
                                               moe_dropless=True, **kw)
@@ -139,10 +104,11 @@ def serve(cell: Cell, model, weights, sizes: dict, seed: int,
     rec.window_close = rec.window_open + seconds
     if trace:
         from .tracing import Tracer
-        tracer = Tracer(eng, rec, sizes, start=None,
+        tracer = Tracer(eng, rec, cell.family, sizes, start=None,
                         slices=[("span", float(w["span_s"])),
                                 ("a", float(w["profile_a_s"])),
-                                ("b", float(w["profile_b_s"]))])
+                                ("b", float(w["profile_b_s"])),
+                                ("program", float(w["program_span_s"]))])
         step = tracer.step
     window = None       # the window's requests, once it has closed
 
@@ -178,10 +144,11 @@ def serve(cell: Cell, model, weights, sizes: dict, seed: int,
 def setup(cell: Cell, seed: int, device: str):
     """(model, weights, sizes) of the cell, the weights from ``seed``."""
     from repro_torch.models import build_model
-    sizes = sizes_of(cell.config)
-    model = build_model(port_config(cell.config), device)
+    sizes = cell.family.sizes_of(cell.config)
+    model = build_model(port_config(cell.family, cell.config), device)
     torch.manual_seed(int(seed) % (1 << 63))
-    return model, make_weights(sizes, seed, model.device), sizes
+    return model, make_weights(cell.family, sizes, seed, model.device), \
+        sizes
 
 
 def release() -> None:
@@ -209,10 +176,6 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
                      float(w["lead_in_s"]), float(w["drain_cap_s"]))
     rec.setup_s = rec.window_open - t_start
     peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
-    foreign = foreign_modules()
-    if foreign:
-        raise SystemExit(f"modules of JAX or the JAX package loaded: "
-                         f"{', '.join(foreign)}")
 
     # the comparison, once the program's state is freed
     window = rec.window_requests()
@@ -226,10 +189,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     found = ctrl = {}
     if sample:
         seqs, rows, served = compare.reference_inputs(sample, outputs, dev)
-        ref = forward_logits(weights, sizes, seqs, rows)
+        ref = cell.family.forward_logits(weights, sizes, seqs, rows)
         found = compare.gap_numbers(ref, served)
         if control:
-            ctrl = compare.control_numbers(weights, sizes, seqs, rows, ref)
+            ctrl = compare.control_numbers(cell.family, weights, sizes,
+                                           seqs, rows, ref)
         del ref
     correct, checks = compare.judge(found, spec["limits"])
 
@@ -257,6 +221,12 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         f"memory peak {peak} bytes; sample {len(sample)} requests "
         f"(highest slot {max((r.slot for r in sample), default=-1)}), "
         f"{found.get('served_tokens', 0)} served tokens")
+    # last, once the reference, the control and the metric readers (the
+    # family's and the readers' files among them) have run
+    foreign = foreign_modules()
+    if foreign:
+        raise SystemExit(f"modules of JAX or the JAX package loaded: "
+                         f"{', '.join(foreign)}")
     device_info = {"platform": "gpu" if dev.type == "cuda" else dev.type,
                    "kind": torch.cuda.get_device_name(dev)
                    if dev.type == "cuda" else "cpu",

@@ -12,12 +12,18 @@ the calls into the program's layers:
   (grouped SwiGLU's group sizes, decode's ``kv_valid`` from the engine's
   positions on the host); slice B (host and device, with the harness's
   spans as ``record_function`` ranges) names each idle gap of the device
-  by the span the host was in.
+  by the span the host was in; last the program slice, the only time the
+  program's own tracer (``repro_torch.trace``) is on: its spans, and the
+  engine's counters (``io_stats``, the scheduler's step count) at the
+  slice's start and end, go to ``Records.spans``, ``io_open`` and
+  ``io_close``.
 
-Outside the slices nothing synchronises, so that the window's queueing
-is that of an untraced run; the slices begin once the window's requests
-have their first tokens, so that the scheduler's metrics read no request
-that they slowed.  Nothing here runs in an untraced run.
+The architecture's model FLOPs and attention-layer count come from the
+cell's family.  Outside the slices nothing synchronises, so that the
+window's queueing is that of an untraced run; the slices begin once the
+window's requests have their first tokens, so that the scheduler's
+metrics read no request that they slowed.  Nothing here runs in an
+untraced run.
 """
 from __future__ import annotations
 
@@ -30,9 +36,8 @@ import torch
 
 from ..counts.flash import decode_bound_s
 from ..counts.gmm import gmm_bound_s
-from ..counts.step import chunk_flops, decode_flops
 
-__all__ = ["Tracer"]
+__all__ = ["Tracer", "flash_decode_bound_s"]
 
 #: kernels by a part of their CUDA function names
 GMM_KERNELS = ("gmm_",)
@@ -86,16 +91,28 @@ def _label(spans, starts, t: int) -> str:
     return "bench.outside_step"
 
 
+def flash_decode_bound_s(family, sizes: dict, kv_calls) -> float:
+    """The least time of flash attention's decode calls: each step's
+    ``kv_valid`` (``kv_calls``) through every attention layer of the
+    family."""
+    s = sizes
+    return family.attention_layers(s) * sum(
+        decode_bound_s(s["num_heads"], s["num_kv_heads"], s["head_dim"],
+                       kv, s["dtype"]) for kv in kv_calls)
+
+
 class Tracer:
     """``slices``: ``[(mode, seconds), ...]`` run back to back from
-    ``start`` (absolute; None until the caller sets it): ``"span"`` synchronises and times each model call,
-    ``"a"`` and ``"b"`` are the profiled slices.  Outside them (``"off"``)
-    calls are counted but neither timed nor synchronised, so that the rest
-    of the window runs as an untraced run does."""
+    ``start`` (absolute; None until the caller sets it): ``"span"``
+    synchronises and times each model call, ``"a"`` and ``"b"`` are the
+    profiled slices, ``"program"`` turns the program's tracer on.  Outside
+    them (``"off"``) calls are counted but neither timed nor synchronised,
+    so that the rest of the window runs as an untraced run does."""
 
-    def __init__(self, eng, rec, sizes: dict, *, start: float, slices,
-                 clock=time.monotonic):
+    def __init__(self, eng, rec, family, sizes: dict, *, start: float,
+                 slices, clock=time.monotonic):
         self.eng, self.rec, self.sizes, self.clock = eng, rec, sizes, clock
+        self.family = family
         self.cuda = eng.device.type == "cuda"
         self.start, self.slices = start, list(slices)
         self.mode, self.t_start, self.length = "off", 0.0, 0.0
@@ -142,7 +159,7 @@ class Tracer:
         return out
 
     def _install(self):
-        eng, s = self.eng, self.sizes
+        eng, s, fam = self.eng, self.sizes, self.family
         chunk, whole, decode = eng._prefill_chunk, eng._prefill, eng._decode
         plan = eng.batcher.plan_step
         cap = eng.cap
@@ -150,13 +167,13 @@ class Tracer:
         def prefill_chunk(params, batch, cache, row, start):
             n = int(batch["tokens"].shape[1])
             return self._call("prefill_chunk", chunk, n,
-                              chunk_flops(s, int(start), n),
+                              fam.chunk_flops(s, int(start), n),
                               params, batch, cache, row, start)
 
         def prefill(params, batch):
             n = int(batch["tokens"].shape[1])
-            return self._call("prefill", whole, n, chunk_flops(s, 0, n),
-                              params, batch)
+            return self._call("prefill", whole, n,
+                              fam.chunk_flops(s, 0, n), params, batch)
 
         def step_decode(*args):
             live = [int(eng.slot_pos[i]) for i, r in enumerate(eng.slot_req)
@@ -165,7 +182,7 @@ class Tracer:
                 self.flash_calls.append(
                     np.minimum(eng.slot_pos + 1, cap).tolist())
             return self._call("decode", decode, len(live),
-                              decode_flops(s, live), *args)
+                              fam.decode_flops(s, live), *args)
 
         def plan_step():
             p = plan()
@@ -202,12 +219,22 @@ class Tracer:
         from repro_torch.models import moe
         moe.grouped_swiglu = self._gmm_orig
 
+    def _counters(self) -> dict:
+        """The engine's counters now, the scheduler's steps and the time."""
+        return dict(self.eng.io_stats,
+                    steps=self.eng.batcher.metrics["steps"], t=self.clock())
+
     def _end_slice(self):
         """Close the current slice; its profile is read after the run: the
         events are many, and reading them now would stall the window."""
         if self.cuda:
             torch.cuda.synchronize()
         seconds = self.clock() - self.t_start
+        if self.mode == "program":
+            from repro_torch import trace
+            trace.disable()
+            self.rec.io_close = self._counters()
+            self.rec.spans = trace.take()
         if self.mode in ("a", "b"):
             self.prof.stop()
             summarise = self._summarise_a if self.mode == "a" \
@@ -231,6 +258,10 @@ class Tracer:
             self.prof.start()
         if mode == "a":
             self._gmm_install()
+        if mode == "program":
+            from repro_torch import trace
+            self.rec.io_open = self._counters()
+            trace.enable()
         self.mode, self.t_start = mode, self.clock()
 
     def on_tick(self, now: float):
@@ -267,9 +298,7 @@ class Tracer:
         s = self.sizes
         gmm_bound = sum(gmm_bound_s(e, c, d, f, load.tolist(), s["dtype"])
                         for e, c, d, f, load in self.gmm_calls)
-        flash_bound = s["num_layers"] * sum(
-            decode_bound_s(s["num_heads"], s["num_kv_heads"], s["head_dim"],
-                           kv, s["dtype"]) for kv in self.flash_calls)
+        flash_bound = flash_decode_bound_s(self.family, s, self.flash_calls)
         self.summary.update(
             window_s=window_s, busy_s=busy, kernels=len(kernels),
             device_ops=[[k[:160], v] for k, v in top],

@@ -9,7 +9,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 
-TINY_MOE = {"name": "tiny-moe", "arch": "mixtral-8x22b", "source": "test",
+TINY_MOE = {"name": "tiny-moe", "arch": "mixtral-8x22b",
+            "family": "transformer", "source": "test",
             "hidden_size": 64, "intermediate_size": 128,
             "num_attention_heads": 4, "num_key_value_heads": 2,
             "head_dim": 16, "num_hidden_layers": 2, "vocab_size": 512,
@@ -18,7 +19,7 @@ TINY_MOE = {"name": "tiny-moe", "arch": "mixtral-8x22b", "source": "test",
             "num_experts_per_tok": 2, "tie_word_embeddings": False,
             "torch_dtype": "bfloat16"}
 TINY_DENSE = {"name": "tiny-dense", "arch": "mistral-large-123b",
-              "source": "test", "hidden_size": 64, "intermediate_size": 128,
+              "family": "transformer", "source": "test", "hidden_size": 64, "intermediate_size": 128,
               "num_attention_heads": 8, "num_key_value_heads": 2,
               "head_dim": 16, "num_hidden_layers": 2, "vocab_size": 512,
               "rope_theta": 1000000.0, "rms_norm_eps": 1e-05,
@@ -45,8 +46,7 @@ def tiny_cell(name: str, config: str, **kw) -> dict:
                        "prefill_chunk": 32, "prefill_token_budget": 64,
                        "admission": "strategy"},
             "lead_in_s": 0.5, "drain_cap_s": 60, "span_s": 1.0,
-            "profile_a_s": 0.5,
-            "profile_b_s": 0.5,
+            "profile_a_s": 0.5, "profile_b_s": 0.5, "program_span_s": 1.0,
             "compare": {"served": 64, "limits": {"gap_max": 0.5}},
             "why": "a tiny cell for the CPU tests"}
     cell.update(kw)

@@ -7,8 +7,8 @@ from bench.counts.flash import decode_bound_s, decode_work
 from bench.counts.gmm import gmm_bound_s, gmm_work
 from bench.counts.step import (chunk_flops, decode_flops,
                                layer_params_per_token, token_flops)
+from bench.families.transformer import sizes_of
 from bench.harness.registry import BENCH_DIR
-from bench.harness.runner import sizes_of
 
 import json
 

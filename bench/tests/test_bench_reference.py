@@ -7,9 +7,10 @@ import sys
 import pytest
 import torch
 
-from bench.harness.runner import port_config, sizes_of
+from bench.families import transformer
+from bench.families.transformer import forward_logits, sizes_of
+from bench.harness.runner import port_config
 from bench.harness.weights import make_weights
-from bench.reference import forward_logits
 from bench.tests._tiny import ROOT, TINY_DENSE, TINY_MOE
 
 def tree_leaves(tree):
@@ -37,17 +38,18 @@ def _tree_shapes(tree, path=""):
 def test_weights_have_the_port_layout(name):
     from repro_torch.models import build_model
     config = CONFIGS[name]
-    model = build_model(port_config(config), "cpu")
-    ours = make_weights(sizes_of(config), 3, "cpu")
+    model = build_model(port_config(transformer, config), "cpu")
+    ours = make_weights(transformer, sizes_of(config), 3, "cpu")
     assert _tree_shapes(ours) == _tree_shapes(model.init(3))
 
 
 def test_weights_follow_the_seed():
     s = sizes_of(TINY_DENSE)
-    a, b = make_weights(s, 5, "cpu"), make_weights(s, 5, "cpu")
+    a = make_weights(transformer, s, 5, "cpu")
+    b = make_weights(transformer, s, 5, "cpu")
     assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
                                                  tree_leaves(b)))
-    c = make_weights(s, 6, "cpu")
+    c = make_weights(transformer, s, 6, "cpu")
     assert not torch.equal(a["lm_head"]["w"], c["lm_head"]["w"])
 
 
@@ -56,9 +58,9 @@ def test_reference_equals_the_port_in_fp32(name):
     from repro_torch.models import build_model
     from repro_torch.models.transformer import lm_forward
     config = dict(CONFIGS[name], torch_dtype="float32")
-    cfg = port_config(config)
+    cfg = port_config(transformer, config)
     sizes = sizes_of(config)
-    w = make_weights(sizes, 11, "cpu")
+    w = make_weights(transformer, sizes, 11, "cpu")
     build_model(cfg, "cpu")
     g = torch.Generator().manual_seed(0)
     seqs = [torch.randint(0, 512, (n,), generator=g) for n in (40, 23)]

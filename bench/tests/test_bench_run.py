@@ -7,6 +7,7 @@ import json
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -139,6 +140,10 @@ def test_no_file_of_the_benchmark_imports_jax_or_the_jax_package():
         assert not names & set(runner.FORBIDDEN), path
         if "reference" in path.parts:
             assert names <= {"__future__", "math", "typing", "torch"}, path
+        if "families" in path.parts:
+            # a family's reference is under bench/reference; nothing of a
+            # family comes from the program it judges
+            assert "repro_torch" not in names, path
 
 
 def test_a_run_loads_no_jax_module(tree):
@@ -183,3 +188,53 @@ def test_traced_slices_run_in_the_drain(tree):
     synced = [c for c in rec.calls if c["synced"]]
     assert synced and all(c["start"] >= rec.traced_from for c in synced)
     assert all(r.done for r in window)
+
+
+PROGRAM_METRICS = ("decode_issue_ms", "host_syncs_per_step",
+                   "kv_gather_live_share")
+
+
+def test_program_slice_alone_turns_the_tracer_on(tree, monkeypatch):
+    from repro_torch import trace
+    from bench.harness.registry import load_reader
+    switched = []
+    for name in ("enable", "disable"):
+        orig = getattr(trace, name)
+        monkeypatch.setattr(trace, name, lambda orig=orig, name=name: (
+            switched.append((name, time.monotonic())), orig())[1])
+    cell = load_cell("tiny-moe.chat", tree)
+    w = cell.workload
+    model, weights, sizes = runner.setup(cell, 6, "cpu")
+    rec, _ = runner.serve(cell, model, weights, sizes, 6, 3.0, True,
+                          float(w["lead_in_s"]), float(w["drain_cap_s"]))
+    assert not trace._state.on
+    # once on, once off: after the window and after the span slice's
+    # synchronised calls, around the counters' two snapshots
+    assert [n for n, _ in switched] == ["enable", "disable"]
+    on, off = switched[0][1], switched[1][1]
+    assert rec.window_close <= rec.traced_from <= on
+    assert all(c["end"] <= on for c in rec.calls if c["synced"])
+    assert rec.io_open["t"] <= on <= off <= rec.io_close["t"]
+    assert off - on >= float(w["program_span_s"])
+    assert rec.spans and all(on <= s.start and s.end <= off
+                             for s in rec.spans)
+    assert {"engine.step", "model.decode", "engine.upload",
+            "engine.read"} <= {s.name for s in rec.spans}
+    assert rec.io_close["steps"] > rec.io_open["steps"]
+    got = {m: load_reader(m)(rec) for m in PROGRAM_METRICS}
+    assert all(isinstance(v, float) and v > 0 for v in got.values()), got
+    assert got["kv_gather_live_share"] <= 100.0
+    # at least the decode's two uploads and its read, each step that decodes
+    assert got["host_syncs_per_step"] >= 1.0
+
+
+def test_program_readers_read_nothing_untraced(tree):
+    from bench.harness.registry import load_reader
+    cell = load_cell("tiny-dense.chat", tree)
+    w = cell.workload
+    model, weights, sizes = runner.setup(cell, 7, "cpu")
+    rec, _ = runner.serve(cell, model, weights, sizes, 7, 1.0, False,
+                          float(w["lead_in_s"]), float(w["drain_cap_s"]))
+    assert rec.spans == [] and rec.io_open is None and rec.io_close is None
+    for m in PROGRAM_METRICS:
+        assert load_reader(m)(rec) is None, m
