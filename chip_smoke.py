@@ -71,9 +71,11 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      in fp64 on a few heads; the kernel's device time;
    - the MoE route, dispatch and combine (``phase_moe_dispatch``) at
      Mixtral-8x22B's decode (T = 32, the engine's batch) and chunk
-     (T = 512) and at kimi-k2-1t-a32b's decode (T = 8) and 1024-token
-     chunk, dropless with restealing, bf16: the route's experts equal
-     ``route_topk``'s, the plan equal to ``priority_dispatch``'s on the
+     (T = 512), at kimi-k2-1t-a32b's decode (T = 8) and 1024-token
+     chunk, and at Jamba2-Mini's decode (T = 32) and chunk (T = 512; E =
+     16, k = 2, D = 4096) with the top 2 kept unrenormalised
+     (``renormalize=False``, the route kernel's other branch), dropless
+     with restealing, bf16: the route's experts equal ``route_topk``'s, the plan equal to ``priority_dispatch``'s on the
      kernel's routing, the combine's bits those of
      ``combine_expert_outputs``, twice; kernels a call, device ms and the
      host's microseconds to issue the three steps, fused against plain;
@@ -163,14 +165,25 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    done, ``alloc.check()``, logits finite, flash attention launched once a
    superblock (2 a call) and grouped SwiGLU once a MoE layer (8 a call) in
    every prefill and decode call.  Then paged == contiguous on 4 requests.
-   Then, in place of chunked prefill (the family has none), the hand-off
-   (``phase_hybrid_handoff``) on those 4 prompts: prefill(p + [t]) against
-   prefill(p) then decode_step(t), with each MoE layer's expert choice for
-   the last token compared; in bf16 the distance on the logits against the
-   reference's bound of 0.25 and the flipped layers are reported (a
-   flipped expert choice puts it far past 0.25); held in fp32 on 1
-   superblock at full width (its own weights, loaded alone), within 1e-3
-   of the largest |logit|.
+   Then the hand-off (``phase_hybrid_handoff``) on those 4 prompts:
+   prefill(p + [t]) against prefill(p) then decode_step(t), with each MoE
+   layer's expert choice for the last token compared; in bf16 the
+   distance on the logits against the reference's bound of 0.25 and the
+   flipped layers are reported (a flipped expert choice puts it far past
+   0.25); held in fp32 on 1 superblock at full width (its own weights,
+   loaded alone), within 1e-3 of the largest |logit|.  Between the two,
+   Jamba2-Mini's equations on the same 16 layers
+   (``phase_jamba2_chunked``: ``mamba_inner_norm``,
+   ``moe_renormalize=False``, as ``bench/families/hybrid.py`` sets them)
+   served in 512-token chunks that carry each request's Mamba state: 8
+   requests of 64-1024 prompt tokens, 16 new each; every request done,
+   ``alloc.check()``, logits finite, the staged states all committed,
+   grouped SwiGLU and the dispatch launched once a MoE layer in every
+   chunk and decode call, flash once a superblock in every decode call
+   and in no chunk call (a chunk's attention is the masked path), and no
+   whole-prompt prefill.  The chunked path's logits are held against the
+   plain reference by ``tests/test_torch_jamba2.py`` on the CPU and by
+   the benchmark's ``correct`` on the card.
 
 8. the prefix scan's own path (it is on no serving path: the reference
    runs it from its benchmarks and tests only): its public wrapper driven
@@ -449,6 +462,10 @@ AUTOSCALE_TARGET = 128
 #: largest |logit|
 JAMBA_LAYERS = 16
 HANDOFF_TOL_FP32 = 1e-3
+#: Jamba2-Mini's path on those 16 layers: its own name in the launch
+#: counts, and the benchmark cell's prefill chunk
+JAMBA2 = "jamba2-mini-l16"
+JAMBA2_CHUNK = 512
 #: main paths 5-9, the remaining decoders at full width: arch -> (layers
 #: on one card (None: all), s_max, requests, longest prompt, new tokens).
 #: mistral-large-123b keeps 22 of 88 layers (62.5 GB in bf16), cut as
@@ -1081,12 +1098,14 @@ def _gmm_rows(cases, plain_experts=None) -> list:
     return rows
 
 
-#: the MoE dispatch phase: (path, case, T, E, k, D)
+#: the MoE dispatch phase: (path, case, T, E, k, D, renormalise the top k)
 MOE_DISPATCH_SHAPES = (
-    ("mixtral-8x22b", "mixtral_decode", 32, 8, 2, 6144),
-    ("mixtral-8x22b", "mixtral_chunk", 512, 8, 2, 6144),
-    ("kimi-k2-1t-a32b", "kimi_decode", 8, 384, 8, 7168),
-    ("kimi-k2-1t-a32b", "kimi_chunk", 1024, 384, 8, 7168))
+    ("mixtral-8x22b", "mixtral_decode", 32, 8, 2, 6144, True),
+    ("mixtral-8x22b", "mixtral_chunk", 512, 8, 2, 6144, True),
+    ("kimi-k2-1t-a32b", "kimi_decode", 8, 384, 8, 7168, True),
+    ("kimi-k2-1t-a32b", "kimi_chunk", 1024, 384, 8, 7168, True),
+    (JAMBA2, "jamba2_decode", 32, 16, 2, 4096, False),
+    (JAMBA2, "jamba2_chunk", 512, 16, 2, 4096, False))
 
 
 def _issue_us(fn, reps: int = 30) -> float:
@@ -1120,13 +1139,13 @@ def phase_moe_dispatch(seed: int) -> list:
     functions at ``MOE_DISPATCH_SHAPES``, bf16, dropless (capacity T) with
     restealing and the priority policy, as the configurations run them;
     the expert outputs random.  Fails unless the route's experts equal
-    ``route_topk``'s (the probabilities within 1e-6; whether they are
-    bitwise equal is reported), the plan equals ``priority_dispatch``'s on
+    ``route_topk``'s with the same ``renormalize`` (the probabilities within
+    1e-6; whether they are bitwise equal is reported), the plan equals ``priority_dispatch``'s on
     the kernel's routing (gates and aux loss within 1e-6), the buffer
     ``gather_expert_inputs``'s, and the combine the plain bits, twice."""
     g = torch.Generator(device="cuda").manual_seed(seed + 29)
     rows = []
-    for path, case, t, e, k, d in MOE_DISPATCH_SHAPES:
+    for path, case, t, e, k, d, renorm in MOE_DISPATCH_SHAPES:
         x = torch.randn(t, d, generator=g, device="cuda").bfloat16()
         w = torch.randn(d, e, generator=g, device="cuda") / d ** 0.5
         logits = x.float() @ w
@@ -1134,12 +1153,12 @@ def phase_moe_dispatch(seed: int) -> list:
         kw = dict(num_experts=e, capacity=t, resteal=True)
 
         def fused():
-            r = md_ops.moe_route(logits, k)
+            r = md_ops.moe_route(logits, k, renormalize=renorm)
             sent = md_ops.moe_dispatch(x, r, **kw)
             return r, sent, md_ops.moe_combine(y, sent, t, k)
 
         def plain():
-            r = md_ref.moe_route_plain(logits, k)
+            r = md_ref.moe_route_plain(logits, k, renormalize=renorm)
             sent = md_ref.moe_dispatch_plain(x, r, **kw)
             return r, sent, md_ref.moe_combine_plain(y, sent, t, k)
 
@@ -1169,7 +1188,7 @@ def phase_moe_dispatch(seed: int) -> list:
                                  f"buffer {buf_equal}")
         rows.append(dict(
             MOE_DISPATCH_KERNEL, case=f"{case}/bfloat16", path=path,
-            shape=dict(T=t, E=e, k=k, C=t, D=d),
+            shape=dict(T=t, E=e, k=k, C=t, D=d), renormalize=renorm,
             probs_bitwise=bool(torch.equal(r.probs, pr.probs)),
             gate_bitwise=bool(torch.equal(r.gate, pr.gate)),
             output_max_err=(got.float() - want.float()).abs().max().item(),
@@ -1181,7 +1200,8 @@ def phase_moe_dispatch(seed: int) -> list:
             plain_device_ms=_device_ms(plain, reps=5),
             host_us=_issue_us(fused), plain_host_us=_issue_us(plain)))
         row = rows[-1]
-        print(f"kernel moe_dispatch {row['case']} T={t} E={e} k={k} D={d}: "
+        print(f"kernel moe_dispatch {row['case']} T={t} E={e} k={k} D={d} "
+              f"renormalize={renorm}: "
               f"plan equal, combine bits equal; probs bitwise "
               f"{row['probs_bitwise']}, gate bitwise {row['gate_bitwise']}, "
               f"max err {row['max_err']}; kernels {row['kernels']} "
@@ -1466,14 +1486,20 @@ class _Phase:
 
 
 def phase_main_path(model, params, prompts, *, s_max, max_new, kv_mode,
-                    kernels) -> dict:
-    """Serve ``prompts`` through the engine in ``kv_mode``.  ``kernels``
-    maps a kernel to its launches in one prefill call and in one decode
-    call (0: never)."""
+                    kernels, prefill_chunk=None, name=None) -> dict:
+    """Serve ``prompts`` through the engine in ``kv_mode``, in chunks of
+    ``prefill_chunk`` prompt tokens if given.  ``kernels`` maps a kernel
+    to its launches in one prefill call, in one decode call and, if a
+    third is given, in one chunk call (0: never).  ``name`` (default the
+    architecture's) names the path in the launch counts."""
     eng = ServingEngine(model, params, max_batch=8, s_max=s_max,
-                        block_size=16, kv_mode=kv_mode)
+                        block_size=16, kv_mode=kv_mode,
+                        prefill_chunk=prefill_chunk)
     prefill, decode = _Phase(eng._prefill), _Phase(eng._decode)
     eng._prefill, eng._decode = prefill, decode
+    chunk = _Phase(eng._prefill_chunk or (lambda *a: None))
+    if eng._prefill_chunk is not None:
+        eng._prefill_chunk = chunk
     reqs = [eng.submit(p, max_new_tokens=max_new, priority=float(i % 3))
             for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
@@ -1490,32 +1516,75 @@ def phase_main_path(model, params, prompts, *, s_max, max_new, kv_mode,
     if eng.paged:
         eng.alloc.check()
     layers = model.cfg.num_layers
-    for k, (per_prefill, per_decode) in kernels.items():
-        p_n, d_n = prefill.launches[k], decode.launches[k]
-        want = (per_prefill * prefill.calls, per_decode * decode.calls)
-        if (p_n, d_n) != want or want == (0, 0) \
-                or launches[k] != p_n + d_n:
-            raise AssertionError(f"{k} launches: prefill {p_n}, decode "
-                                 f"{d_n}, total {launches[k]}; expected "
+    phases = (prefill, decode, chunk)
+    for k, per_call in kernels.items():
+        got = tuple(ph.launches[k] for ph in phases)
+        want = tuple(n * ph.calls for n, ph in zip(per_call + (0,), phases))
+        if got != want or not any(want) or launches[k] != sum(got):
+            raise AssertionError(f"{k} launches: prefill, decode, chunk "
+                                 f"{got}, total {launches[k]}; expected "
                                  f"{want}")
     tokens = sum(len(outs[r.rid]) for r in reqs)
     if tokens != max_new * len(reqs):
         raise AssertionError(f"{tokens} tokens for {len(reqs)} requests")
-    stats = dict(arch=model.cfg.name, layers=layers, kv_mode=eng.kv_mode,
+    stats = dict(arch=name or model.cfg.name, layers=layers,
+                 kv_mode=eng.kv_mode,
                  requests=len(reqs), tokens=tokens, wall_s=wall,
                  tokens_per_s=tokens / wall, prefill_s=prefill.seconds,
                  prefill_calls=prefill.calls,
                  decode_steps=decode.calls,
                  decode_step_ms=decode.seconds / decode.calls * 1e3,
+                 prefill_chunk=prefill_chunk, chunk_calls=chunk.calls,
+                 chunk_s=chunk.seconds,
+                 mamba_states={k: v for k, v in eng.io_stats.items()
+                               if k.startswith("mamba_")},
                  launches_per_call=kernels,
                  launches=launches, launches_prefill=prefill.launches,
                  launches_decode=decode.launches,
+                 launches_chunk=chunk.launches,
                  kernel_launches=kernel_launches,
                  kernel_launches_prefill=prefill.kernel_launches,
                  kernel_launches_decode=decode.kernel_launches,
+                 kernel_launches_chunk=chunk.kernel_launches,
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                  prompt_tokens=int(sum(len(p) for p in prompts)))
     print("main path: " + json.dumps(stats))
+    return stats
+
+
+def phase_jamba2_chunked(cfg, seed, prompts) -> dict:
+    """Jamba2-Mini's equations on ``cfg``'s layers (the Mamba mixer's
+    inner norms, the router's top 2 unrenormalised) served by the paged
+    engine in chunks of ``JAMBA2_CHUNK``: every prompt goes through the
+    chunk path, which carries each request's Mamba state from chunk to
+    chunk; a prompt over one chunk takes two or more calls.  Each chunk
+    call launches grouped SwiGLU and the dispatch once a MoE layer and
+    flash never (a chunk attends over the paged pool through the masked
+    ``_sdpa`` path, as the reference's chunk path does); each decode call
+    launches flash once a superblock; every staged state is committed to
+    its decode slot and none is left."""
+    cfg = cfg.replace(mamba_inner_norm=True, moe_renormalize=False)
+    model, params = _init(cfg, seed)
+    n_sb = cfg.num_layers // cfg.attn_every
+    moe = n_sb * (cfg.attn_every // cfg.moe_layer_period)
+    stats = phase_main_path(
+        model, params, prompts, s_max=2048, max_new=16, kv_mode="paged",
+        prefill_chunk=JAMBA2_CHUNK, name=JAMBA2,
+        kernels={"flash_attention": (n_sb, n_sb, 0),
+                 "grouped_swiglu": (moe, moe, moe),
+                 "moe_dispatch": (moe, moe, moe)})
+    chunks = sum(-(-len(p) // JAMBA2_CHUNK) for p in prompts)
+    want = dict(mamba_states_staged=len(prompts),
+                mamba_states_committed=len(prompts), mamba_staged_bytes=0)
+    if stats["chunk_calls"] != chunks or stats["prefill_calls"] \
+            or stats["mamba_states"] != want:
+        raise AssertionError(f"{JAMBA2}: {stats['chunk_calls']} chunk calls "
+                             f"(expected {chunks}), {stats['prefill_calls']} "
+                             f"whole prefills, states "
+                             f"{stats['mamba_states']} (expected {want})")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
     return stats
 
 
@@ -2191,17 +2260,17 @@ def _last_token_experts(record: list):
     every MoE layer's routing, the last token's chosen experts (sorted)."""
     inner = moe_mod.moe_route
 
-    def route(logits, k, alt=False):
-        out = inner(logits, k, alt)
+    def route(logits, k, alt=False, **kw):
+        out = inner(logits, k, alt, **kw)
         record.append(sorted(out[0][-1].tolist()))
         return out
     return route
 
 
 def phase_hybrid_handoff(model, params, prompts, bound_rel=None) -> dict:
-    """The check that takes chunked prefill's place for the hybrid (it has
-    no chunk path): the last logits of prefill(p + [t]) against prefill(p)
-    then decode_step(t) at position len(p), per prompt; prefill runs flash's
+    """The hybrid's prefill-to-decode hand-off: the last logits of
+    prefill(p + [t]) against prefill(p) then decode_step(t) at position
+    len(p), per prompt; prefill runs flash's
     ``mma`` route (fp32: ``fma``) and the Mamba scan, decode the ``split``
     route and the one-step recurrence.  Each MoE layer's choice of experts
     for the last token is recorded on both sides, and the layers where it
@@ -3234,6 +3303,8 @@ def main() -> int:
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
+    # the same 16 layers with Jamba2-Mini's equations, prefilled in chunks
+    jamba2 = phase_jamba2_chunked(cfg, args.seed, prompts)
     # the hand-off held in fp32: 1 superblock at full width (53 GB, alone)
     cfg = cfg.replace(num_layers=cfg.attn_every, dtype="float32",
                       param_dtype="float32")
@@ -3337,7 +3408,8 @@ def main() -> int:
     # serving run and the serving examples' full-width runs are listed
     # under their own names only
     by_path = {p["arch"]: p["launches"]
-               for p in (qwen, mixtral, rwkv, jamba, *decoders.values(),
+               for p in (qwen, mixtral, rwkv, jamba, jamba2,
+                         *decoders.values(),
                          scan_path, encdec)}
     cluster_runs = {cluster[k]["path"]: cluster[k]["launches"]
                     for k in ("chunked", "whole")}

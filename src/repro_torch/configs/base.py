@@ -1,4 +1,4 @@
-# Copied from src/repro/configs/base.py; only the imports may differ.
+# Copied from src/repro/configs/base.py; only the imports and the port-only block may differ.
 """Model configuration schema + registry for the assigned architectures."""
 from __future__ import annotations
 
@@ -84,6 +84,16 @@ class ModelConfig:
     activation_sharding_moe_model: bool = False
     use_flash: bool = False      # Pallas flash-attention path (TPU target)
     norm_eps: float = 1e-5
+    # -- port-only: fields the JAX package has not; each default is the
+    # behaviour both packages share
+    #: Mamba's RMSNorms over x_proj's three parts (Δ, B, C) before dt_proj,
+    #: as Jamba's published mixer has them (``models/ssm.py``)
+    mamba_inner_norm: bool = False
+    #: renormalise the top-k router probabilities to sum to 1 (Mixtral's
+    #: rule); False keeps them as the softmax over every expert gave them
+    #: (Jamba's)
+    moe_renormalize: bool = True
+    # -- end port-only
 
     @property
     def resolved_head_dim(self) -> int:

@@ -12,7 +12,7 @@ __all__ = ["SOURCE", "LIBRARY"]
 SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_dispatch.cu"
 _p, _i = ctypes.c_void_p, ctypes.c_int
 LIBRARY = CudaLibrary("moe_dispatch", SOURCE, {
-    "moe_route_fwd": ([_p, _p, _p, _p, _p, _p, _i, _i, _i, _p], _i),
+    "moe_route_fwd": ([_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _p], _i),
     "moe_dispatch_fwd": ([_i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p,
                           _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i,
                           _i, _p], _i),

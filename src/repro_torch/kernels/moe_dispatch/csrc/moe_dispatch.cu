@@ -11,8 +11,10 @@
 // plain functions compute:
 //
 //   route    (moe_route_kernel, one warp a token): softmax over E, a stable
-//            top-k (ties to the lower expert), the top-k renormalised, and
-//            the (k+1)-th choice that restealing offers.  The softmax is
+//            top-k (ties to the lower expert), the top-k renormalised
+//            (Mixtral's rule) or kept as the softmax gave them (Jamba's;
+//            a flag uniform over the launch), and the (k+1)-th choice that
+//            restealing offers.  The softmax is
 //            laid out as PyTorch's warp softmax lays it out (expert
 //            e = i * 32 + lane, each lane's partial sum in i order, then an
 //            xor butterfly), so that it gives its bits.
@@ -71,7 +73,7 @@ __global__ void __launch_bounds__(kRouteWarps * 32)
     moe_route_kernel(const float* __restrict__ logits, float* __restrict__ probs,
                      int* __restrict__ expert, float* __restrict__ gate,
                      int* __restrict__ alt_e, float* __restrict__ alt_p, int T,
-                     int E, int k) {
+                     int E, int k, int renorm) {
   const int lane = threadIdx.x & 31;
   const int t = blockIdx.x * kRouteWarps + (threadIdx.x >> 5);
   if (t >= T) return;                        // a whole warp leaves together
@@ -138,9 +140,14 @@ __global__ void __launch_bounds__(kRouteWarps * 32)
     }
   }
   if (lane == 0) {
-    // the plain path: gate / clamp(gate.sum(-1), min=1e-9), summed in order
-    const float s = fmaxf(gsum, 1e-9f);
-    for (int r = 0; r < k; ++r) gate[(long long)t * k + r] = g[r] / s;
+    if (renorm) {
+      // the plain path: gate / clamp(gate.sum(-1), min=1e-9), summed in
+      // order
+      const float s = fmaxf(gsum, 1e-9f);
+      for (int r = 0; r < k; ++r) gate[(long long)t * k + r] = g[r] / s;
+    } else {
+      for (int r = 0; r < k; ++r) gate[(long long)t * k + r] = g[r];
+    }
   }
 }
 
@@ -409,10 +416,10 @@ __global__ void __launch_bounds__(kCombineThreads)
 template <int V>
 cudaError_t launch_route(const float* logits, float* probs, int* expert,
                          float* gate, int* alt_e, float* alt_p, int T, int E,
-                         int k, cudaStream_t st) {
+                         int k, int renorm, cudaStream_t st) {
   const int grid = (T + kRouteWarps - 1) / kRouteWarps;
   moe_route_kernel<V><<<grid, kRouteWarps * 32, 0, st>>>(
-      logits, probs, expert, gate, alt_e, alt_p, T, E, k);
+      logits, probs, expert, gate, alt_e, alt_p, T, E, k, renorm);
   return cudaGetLastError();
 }
 
@@ -460,11 +467,13 @@ cudaError_t launch_combine(const void* y, const int* slot, const float* gate,
 extern "C" {
 
 // logits [T, E] fp32 -> probs [T, E] fp32, expert [T, k] int32, gate
-// [T, k] fp32 (renormalised over the k), and, when alt_e is not
-// null, the (k+1)-th choice alt_e [T] int32 and its probability alt_p [T].
-// E <= 1024, 1 <= k <= min(E, 16).  Returns cudaGetLastError() (0 = ok).
+// [T, k] fp32 (renormalised over the k where renorm is non-zero, else the
+// probabilities themselves), and, when alt_e is not null, the (k+1)-th
+// choice alt_e [T] int32 and its probability alt_p [T].  E <= 1024,
+// 1 <= k <= min(E, 16).  Returns cudaGetLastError() (0 = ok).
 int moe_route_fwd(const void* logits, void* probs, void* expert, void* gate,
-                  void* alt_e, void* alt_p, int T, int E, int k, void* stream) {
+                  void* alt_e, void* alt_p, int T, int E, int k, int renorm,
+                  void* stream) {
   if (T <= 0 || E <= 0 || E > 1024 || k <= 0 || k > kMaxK || k > E)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -475,13 +484,19 @@ int moe_route_fwd(const void* logits, void* probs, void* expert, void* gate,
   int* ae = static_cast<int*>(alt_e);
   float* ap = static_cast<float*>(alt_p);
   const int v = (E + 31) / 32;
-  if (v <= 1) return (int)launch_route<1>(l, p, ex, g, ae, ap, T, E, k, st);
-  if (v <= 2) return (int)launch_route<2>(l, p, ex, g, ae, ap, T, E, k, st);
-  if (v <= 4) return (int)launch_route<4>(l, p, ex, g, ae, ap, T, E, k, st);
-  if (v <= 8) return (int)launch_route<8>(l, p, ex, g, ae, ap, T, E, k, st);
-  if (v <= 12) return (int)launch_route<12>(l, p, ex, g, ae, ap, T, E, k, st);
-  if (v <= 16) return (int)launch_route<16>(l, p, ex, g, ae, ap, T, E, k, st);
-  return (int)launch_route<32>(l, p, ex, g, ae, ap, T, E, k, st);
+  if (v <= 1) return (int)launch_route<1>(l, p, ex, g, ae, ap, T, E, k,
+                                           renorm, st);
+  if (v <= 2) return (int)launch_route<2>(l, p, ex, g, ae, ap, T, E, k,
+                                           renorm, st);
+  if (v <= 4) return (int)launch_route<4>(l, p, ex, g, ae, ap, T, E, k,
+                                           renorm, st);
+  if (v <= 8) return (int)launch_route<8>(l, p, ex, g, ae, ap, T, E, k,
+                                           renorm, st);
+  if (v <= 12) return (int)launch_route<12>(l, p, ex, g, ae, ap, T, E, k,
+                                            renorm, st);
+  if (v <= 16) return (int)launch_route<16>(l, p, ex, g, ae, ap, T, E, k,
+                                            renorm, st);
+  return (int)launch_route<32>(l, p, ex, g, ae, ap, T, E, k, renorm, st);
 }
 
 // The plan, the expert buffer and the stats of T tokens x k choices over E

@@ -71,14 +71,16 @@ def _check(name: str, t: torch.Tensor, device, dtype, shape) -> None:
                          f"{t.dtype} {list(t.shape)} on {t.device}")
 
 
-def moe_route(logits: torch.Tensor, k: int, alt: bool = False) -> Routing:
+def moe_route(logits: torch.Tensor, k: int, alt: bool = False,
+              renormalize: bool = True) -> Routing:
     """logits: [T, E] fp32 -> top-k routing: expert_idx [T, k] int32 (ties
-    to the lower expert), gate [T, k] renormalised over the k, probs
-    [T, E]; with ``alt`` (CUDA) also the (k+1)-th choice and its
-    probability, which the resteal pass of :func:`moe_dispatch` reads."""
+    to the lower expert), gate [T, k] renormalised over the k (or, without
+    ``renormalize``, the top-k probabilities as they are), probs [T, E];
+    with ``alt`` (CUDA) also the (k+1)-th choice and its probability, which
+    the resteal pass of :func:`moe_dispatch` reads."""
     refuse_dtensor("moe_route", logits)
     if logits.device.type == "cpu":
-        return moe_route_plain(logits, k)
+        return moe_route_plain(logits, k, renormalize=renormalize)
     if logits.device.type != "cuda":
         raise ValueError(f"moe_route runs on cuda or cpu, not "
                          f"{logits.device}")
@@ -103,7 +105,7 @@ def moe_route(logits: torch.Tensor, k: int, alt: bool = False) -> Routing:
         logits.data_ptr(), probs.data_ptr(), expert.data_ptr(),
         gate.data_ptr(), None if alt_e is None else alt_e.data_ptr(),
         None if alt_p is None else alt_p.data_ptr(), t, e, k,
-        _stream(logits))
+        int(renormalize), _stream(logits))
     if code != 0:
         raise RuntimeError("moe_route launch failed: "
                            + lib.moe_dispatch_error_string(code).decode())

@@ -44,12 +44,12 @@ class Dispatched(NamedTuple):
     slot: Optional[torch.Tensor] = None         # [T, k] int32 e*C+pos or -1
 
 
-def moe_route_plain(logits: torch.Tensor, k: int,
-                    alt: bool = False) -> Routing:
+def moe_route_plain(logits: torch.Tensor, k: int, alt: bool = False,
+                    renormalize: bool = True) -> Routing:
     """``route_topk``; ``alt`` is taken and ignored (``priority_dispatch``
     finds the next choice itself)."""
     del alt
-    return Routing(*route_topk(logits, k))
+    return Routing(*route_topk(logits, k, renormalize=renormalize))
 
 
 def aux_loss_plain(probs: torch.Tensor, load: torch.Tensor,

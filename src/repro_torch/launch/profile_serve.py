@@ -135,8 +135,8 @@ def _mamba_windows(cfg, params, device) -> dict:
     h0 = torch.zeros(shape[:1] + shape[2:], device=device)
     x = torch.randn(1, PROMPT_LEN, cfg.d_model, generator=g,
                     device=device).to(mp["in_proj"]["w"].dtype)
-    scan, _ = _window(lambda: ssm._mamba_scan_chunked(decay, inp, h0,
-                                                      cfg.ssm_chunk),
+    chunk = ssm._scan_chunk(PROMPT_LEN, cfg.ssm_chunk)
+    scan, _ = _window(lambda: ssm._mamba_scan_chunked(decay, inp, h0, chunk),
                       PREFILLS)
     layer, _ = _window(lambda: ssm.mamba_fwd(mp, x, cfg), PREFILLS)
     return {"mamba_layers": n_mamba, "scan": scan, "mamba_fwd": layer,

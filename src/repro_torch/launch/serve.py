@@ -225,6 +225,10 @@ def _check_paged_equality(args, model, params, cfg, draft=None) -> int:
         if over["prefill_chunk"] and model.prefill_chunk_paged is None:
             print(f"{mode}: family {cfg.family!r} has no chunk path — skip")
             continue
+        if over["prefix_cache"] and not model.supports_prefix_cache:
+            print(f"{mode}: family {cfg.family!r} has no prefix cache — "
+                  "skip")
+            continue
         kw = dict(_engine_kw(args), **over)   # --num-blocks etc. flow in
         spec = _make_spec(args, draft) if mode == "paged+spec" else None
         eng = ServingEngine(model, params, speculator=spec, **kw)

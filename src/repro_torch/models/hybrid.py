@@ -9,6 +9,15 @@ reference's ``lax.scan`` over superblocks is a Python loop that takes
 superblock ``s``'s views.  Decode carries one KV cache per superblock (the
 attention layer's: paged or contiguous) plus the Mamba states, which stay
 slot-indexed on batch axis 2 in both layouts.  Caches are written in place.
+
+Chunked prefill (``hybrid_prefill_chunk_paged``, beyond the reference,
+which prefills the hybrid whole): each chunk writes its attention K/V into
+the pool and starts every Mamba layer from the request's carried conv and
+ssm state, a ``MambaState`` of ``[n_sb, n_mamba, 1, ...]`` leaves that the
+caller keeps apart from the decode rows (decode writes the states of all
+its rows, free ones included) and that the chunk updates in place; after
+the last chunk ``hybrid_commit_chunk_state`` copies it into the request's
+decode slot.
 """
 from __future__ import annotations
 
@@ -17,11 +26,13 @@ from typing import Callable, NamedTuple, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import trace
 from ..configs.base import ModelConfig
 from ..sharding.dtensor import placed_like
 from .attention import (KVCache, PagedKVCache, attention_decode,
                         attention_decode_paged, attention_fwd,
-                        init_attention, init_kv_cache, init_paged_kv_cache)
+                        attention_prefill_chunk_paged, init_attention,
+                        init_kv_cache, init_paged_kv_cache)
 from .layers import (dtype_of, embed, init_embedding, init_linear, init_mlp,
                      init_rms_norm, linear, mlp, rms_norm)
 from .moe import init_moe, moe_fwd
@@ -33,7 +44,9 @@ __all__ = ["init_hybrid_lm", "hybrid_forward", "hybrid_prefill",
            "hybrid_decode_step", "init_hybrid_cache", "HybridCache",
            "hybrid_insert_prefill",
            "HybridPagedCache", "init_hybrid_paged_cache",
-           "hybrid_decode_step_paged", "hybrid_insert_prefill_paged"]
+           "hybrid_decode_step_paged", "hybrid_insert_prefill_paged",
+           "init_hybrid_chunk_state", "hybrid_prefill_chunk_paged",
+           "hybrid_commit_chunk_state"]
 
 
 class HybridCache(NamedTuple):
@@ -178,6 +191,12 @@ def init_hybrid_cache(cfg: ModelConfig, batch: int, s_max: int,
 def hybrid_prefill(params: dict, batch: dict, cfg: ModelConfig,
                    s_max: Optional[int] = None):
     """Run the prompt, return (last-position logits, filled cache)."""
+    with trace.span("model.prefill"):
+        return _hybrid_prefill(params, batch, cfg, s_max)
+
+
+def _hybrid_prefill(params: dict, batch: dict, cfg: ModelConfig,
+                    s_max: Optional[int]):
     x = embed(params["embed"], batch["tokens"], cfg.onehot_embed)
     b, s, _ = x.shape
     s_max = s_max or s
@@ -203,24 +222,31 @@ def hybrid_prefill(params: dict, batch: dict, cfg: ModelConfig,
         cache.kv.v[i, :, :w] = tail_v.to(cache.kv.v.dtype)
         cache.conv[i] = st.conv
         cache.h[i] = st.h
-    x = rms_norm(params["ln_f"], x, cfg.norm_eps)
-    return linear(params["lm_head"], x[:, -1:]), cache
+    return _unembed(params, x, cfg), cache
 
 
-def _superblock_decode(p: dict, x: torch.Tensor, attend: Callable,
-                       conv: torch.Tensor, h: torch.Tensor,
-                       cfg: ModelConfig) -> torch.Tensor:
-    """One superblock of one-token decode.  ``attend(attn_params, z)`` is
-    the attention layer's decode over its cache; ``conv`` and ``h`` (this
-    superblock's Mamba states, [n_mamba, B, ...]) are updated in place."""
+def _unembed(params: dict, x: torch.Tensor, cfg: ModelConfig):
+    """The final norm and the output head, at the last position."""
+    with trace.span("model.unembed"):
+        x = rms_norm(params["ln_f"], x, cfg.norm_eps)
+        return linear(params["lm_head"], x[:, -1:])
+
+
+def _superblock_step(p: dict, x: torch.Tensor, attend: Callable,
+                     mamba: Callable, conv: torch.Tensor, h: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """One superblock of a decode step or a prefill chunk.
+    ``attend(attn_params, z)`` is the attention layer over its cache,
+    ``mamba`` is ``mamba_decode`` or ``mamba_fwd``; each Mamba layer starts
+    from ``conv`` and ``h`` (this superblock's states, [n_mamba, B, ...]),
+    which are updated in place."""
     mi = 0
     for layer in p["layers"]:
         z = rms_norm(layer["ln1"], x, cfg.norm_eps)
         if "attn" in layer:
             y = attend(layer["attn"], z)
         else:
-            y, st = mamba_decode(layer["mamba"], z, cfg,
-                                 MambaState(conv[mi], h[mi]))
+            y, st = mamba(layer["mamba"], z, cfg, MambaState(conv[mi], h[mi]))
             conv[mi], h[mi] = st.conv, st.h
             mi += 1
         x, _ = _ffn(layer, x + y, cfg)
@@ -237,8 +263,8 @@ def hybrid_decode_step(params: dict, token: torch.Tensor, cache: HybridCache,
 
         def attend(p, z, kv=kv):
             return attention_decode(p, z, kv, pos, cfg)[0]
-        x = _superblock_decode(_layer(params["superblocks"], i), x, attend,
-                               cache.conv[i], cache.h[i], cfg)
+        x = _superblock_step(_layer(params["superblocks"], i), x, attend,
+                             mamba_decode, cache.conv[i], cache.h[i], cfg)
     x = rms_norm(params["ln_f"], x, cfg.norm_eps)
     return linear(params["lm_head"], x), cache
 
@@ -278,16 +304,17 @@ def hybrid_decode_step_paged(params: dict, token: torch.Tensor,
     """Paged hybrid decode: attention KV read through ``table``
     [B, max_blocks], one superblock's slice of the pool at a time; conv/ssm
     states indexed by batch slot as before."""
-    x = embed(params["embed"], token, cfg.onehot_embed)
-    for i in range(_n_superblocks(cfg)):
-        kv = PagedKVCache(cache.kv.k[i], cache.kv.v[i])
+    with trace.span("model.decode"):
+        x = embed(params["embed"], token, cfg.onehot_embed)
+        for i in range(_n_superblocks(cfg)):
+            kv = PagedKVCache(cache.kv.k[i], cache.kv.v[i])
 
-        def attend(p, z, kv=kv):
-            return attention_decode_paged(p, z, kv, table, pos, cfg)[0]
-        x = _superblock_decode(_layer(params["superblocks"], i), x, attend,
-                               cache.conv[i], cache.h[i], cfg)
-    x = rms_norm(params["ln_f"], x, cfg.norm_eps)
-    return linear(params["lm_head"], x), cache
+            def attend(p, z, kv=kv):
+                return attention_decode_paged(p, z, kv, table, pos, cfg)[0]
+            x = _superblock_step(_layer(params["superblocks"], i), x,
+                                 attend, mamba_decode, cache.conv[i],
+                                 cache.h[i], cfg)
+        return _unembed(params, x, cfg), cache
 
 
 def hybrid_insert_prefill_paged(cache: HybridPagedCache, dense: HybridCache,
@@ -299,4 +326,54 @@ def hybrid_insert_prefill_paged(cache: HybridPagedCache, dense: HybridCache,
     lm_insert_prefill_paged(cache.kv, dense.kv, table_row, slot, cfg)
     cache.conv[:, :, slot] = dense.conv[:, :, 0].to(cache.conv.dtype)
     cache.h[:, :, slot] = dense.h[:, :, 0].to(cache.h.dtype)
+    return cache
+
+
+def init_hybrid_chunk_state(cfg: ModelConfig, device=None) -> MambaState:
+    """A request's Mamba state while it prefills in chunks: conv
+    ``[n_sb, n_mamba, 1, dc-1, di]`` (model dtype) and h
+    ``[n_sb, n_mamba, 1, di, ds]`` (fp32), zero, as a prompt starts."""
+    return MambaState(*_mamba_states(cfg, 1, device))
+
+
+def hybrid_prefill_chunk_paged(params: dict, batch: dict,
+                               cache: HybridPagedCache,
+                               table_row: torch.Tensor, start,
+                               cfg: ModelConfig):
+    """One chunk of a single request's prompt (``batch["tokens"]`` [1, c] at
+    positions ``start .. start+c-1``): each attention layer writes the
+    chunk's K/V into the pool through ``table_row`` and attends over the
+    request's history; each Mamba layer starts from the request's carried
+    state, ``batch["mamba_state"]`` (``init_hybrid_chunk_state``: zeros at
+    ``start == 0``, then what the previous chunk left), and writes the state
+    it ends in back into it, in place.  Returns (last-position logits
+    [1, 1, V], the pool)."""
+    state = batch.get("mamba_state")
+    if state is None:
+        raise ValueError("a hybrid prefill chunk needs the request's carried "
+                         "Mamba state: batch['mamba_state'] "
+                         "(init_hybrid_chunk_state at the first chunk)")
+    with trace.span("model.prefill_chunk"):
+        x = embed(params["embed"], batch["tokens"], cfg.onehot_embed)
+        for i in range(_n_superblocks(cfg)):
+            kv = PagedKVCache(cache.kv.k[i], cache.kv.v[i])
+
+            def attend(p, z, kv=kv):
+                return attention_prefill_chunk_paged(p, z, kv, table_row,
+                                                     start, cfg)[0]
+            x = _superblock_step(_layer(params["superblocks"], i), x,
+                                 attend, mamba_fwd, state.conv[i],
+                                 state.h[i], cfg)
+        return _unembed(params, x, cfg), cache
+
+
+def hybrid_commit_chunk_state(cache: HybridPagedCache, state: MambaState,
+                              slot, cfg: ModelConfig) -> HybridPagedCache:
+    """Copy a chunk-prefilled request's carried Mamba state into decode
+    slot ``slot`` (batch axis 2), in place, as
+    ``hybrid_insert_prefill_paged`` does for a whole-prompt prefill."""
+    del cfg
+    with trace.span("hybrid.state_commit"):
+        cache.conv[:, :, slot] = state.conv[:, :, 0]
+        cache.h[:, :, slot] = state.h[:, :, 0]
     return cache

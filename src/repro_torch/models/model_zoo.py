@@ -2,8 +2,11 @@
 the reference: ``dense``, ``moe`` and ``vlm`` (one trunk, as in the
 reference: the engine serves a VLM text-only, and ``prefill`` takes a
 batch's ``image_embeds``), ``ssm`` (RWKV-6, no paged path), ``hybrid``
-(Jamba: paged attention KV, Mamba states per slot; no chunked prefill,
-prefix caching or verify path) and ``encdec`` (SeamlessM4T: no
+(Jamba: paged attention KV, Mamba states per slot; chunked prefill that
+carries each request's Mamba state from chunk to chunk, beyond the
+reference, which prefills the hybrid whole; no prefix caching and no
+verify path, since a Mamba state can be neither rolled back nor adopted
+by position) and ``encdec`` (SeamlessM4T: no
 ``init_cache``, since its cache comes from prefill, which needs the
 encoder's output; so the engine cannot serve it, as in the reference, and
 it runs through ``train.step``'s prefill and decode steps).
@@ -49,6 +52,12 @@ class Model:
     #   decode_step_paged(params, token, cache, table, pos)
     #   insert_prefill_paged(cache, dense_cache_B1, table_row, slot)
     #   prefill_chunk_paged(params, batch, cache, table_row, start)
+    #   init_chunk_state() -> a request's carried state while it prefills
+    #     in chunks, passed to each chunk as batch["mamba_state"] and
+    #     updated there in place (models whose trunk has a recurrent
+    #     state: the hybrid); None where the pool holds all of it
+    #   commit_chunk_state(cache, state, slot): that state into the
+    #     request's decode slot after its last chunk
     #   verify_paged(params, tokens_Bc, cache, table, pos): speculative
     #     verification, all-position logits for c tokens per sequence
     #     (attention trunks only: RWKV and Mamba states are not positional,
@@ -57,11 +66,21 @@ class Model:
     decode_step_paged: Optional[Callable[..., tuple]] = None
     insert_prefill_paged: Optional[Callable[..., Any]] = None
     prefill_chunk_paged: Optional[Callable[..., tuple]] = None
+    init_chunk_state: Optional[Callable[[], Any]] = None
+    commit_chunk_state: Optional[Callable[..., Any]] = None
     verify_paged: Optional[Callable[..., tuple]] = None
 
     @property
     def supports_paged(self) -> bool:
         return self.decode_step_paged is not None
+
+    @property
+    def supports_prefix_cache(self) -> bool:
+        """Can resume a prompt behind an adopted prefix of pool blocks: a
+        chunk path whose whole state lives in the pool (no carried
+        state, which a block's content cannot restore)."""
+        return (self.prefill_chunk_paged is not None
+                and self.init_chunk_state is None)
 
     @property
     def supports_speculation(self) -> bool:
@@ -134,8 +153,13 @@ def _build(cfg: ModelConfig, dev: torch.device) -> Model:
             insert_prefill_paged=lambda cache, dense, row, slot:
                 hybrid.hybrid_insert_prefill_paged(cache, dense, row, slot,
                                                    cfg),
-            # chunked prefill needs Mamba state carry across chunks: the
-            # hybrid prefills whole prompts (still paged for decode)
+            prefill_chunk_paged=lambda p, b, cache, row, start:
+                hybrid.hybrid_prefill_chunk_paged(p, b, cache, row, start,
+                                                  cfg),
+            init_chunk_state=lambda: hybrid.init_hybrid_chunk_state(cfg,
+                                                                    dev),
+            commit_chunk_state=lambda cache, state, slot:
+                hybrid.hybrid_commit_chunk_state(cache, state, slot, cfg),
         )
     if cfg.family == "encdec":
         return Model(

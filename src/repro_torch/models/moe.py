@@ -5,6 +5,10 @@ are the paper's decision procedure (``core/device/moe_balance.py``): router
 probability = task priority, capacity overflow = dead tasks, second-choice
 restealing = idle experts stealing shed work.
 
+The gates are the top-k router probabilities renormalised over the k
+(Mixtral), or with ``cfg.moe_renormalize`` off (a port-only field) kept as
+the softmax over every expert gave them (Jamba).
+
 Expert compute is a grouped SwiGLU over the dispatch buffers
 ([E, C, D] × [E, D, F]): the hand-written kernel (``kernels/moe_gmm``) with
 ``use_kernel``, else the einsum path of the reference.  With ``use_kernel``
@@ -101,7 +105,10 @@ def moe_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig,
     with trace.span("moe.route"):
         logits = replicated_local(xt.float() @ p["router"]["w"])
         # the next choice only where restealing can move an assignment
-        routing = route(logits, k, resteal and cap < t)
+        routing = route(logits, k, resteal and cap < t,
+                        # a config of the JAX package (the parity tests
+                        # pass one) has no port-only field: its rule
+                        renormalize=getattr(cfg, "moe_renormalize", True))
     with trace.span("moe.dispatch"):
         sent = dispatch(replicated_local(xt), routing, num_experts=e,
                         capacity=cap, policy=cfg.dispatch_policy,

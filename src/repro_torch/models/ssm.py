@@ -14,7 +14,18 @@ an associative scan, in fp32.  Decode is the plain one-step recurrence.
 Mamba (S6):  h_t = exp(Δ_t A) h_{t-1} + Δ_t B_t x_t ;  y_t = C_tᵀ h_t + D x_t
 The reference has no Mamba kernel, and neither has the port: prefill runs
 the reference's chunked scan in plain PyTorch (fp32 Δ, B, C, decays and
-state), decode the one-step recurrence.
+state), decode the one-step recurrence.  With ``cfg.mamba_inner_norm`` (a
+port-only field; Jamba's published mixer) x_proj's three parts, the
+dt_rank-wide Δ input and the d_state-wide B and C, each go through an
+RMSNorm with its own weight (``dt_norm``, ``b_norm``, ``c_norm``; eps
+``norm_eps``) before dt_proj and the scan, in prefill and decode alike.
+The scan's chunk is chosen from the length of each call (``_scan_chunk``):
+the plain scan issues about 2 (c - 1) + T / c launches for T steps in
+chunks of c, fewest near c = sqrt(T / 2), and ``cfg.ssm_chunk`` is the
+largest chunk it takes; the chunk moves only fp32 rounding.
+Spans (``trace``): ``mamba.prefill`` and ``mamba.decode`` around one
+layer's work from in_proj to out_proj (attr ``tokens``), ``mamba.scan``
+around the chunked scan inside ``mamba.prefill``.
 """
 from __future__ import annotations
 
@@ -23,10 +34,12 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from .. import trace
 from ..configs.base import ModelConfig
 from ..kernels.wkv6 import wkv6
 from ..sharding.dtensor import flatten, shard_map, unflatten
-from .layers import group_norm, init_group_norm, init_linear, linear
+from .layers import (group_norm, init_group_norm, init_linear,
+                     init_rms_norm, linear, rms_norm)
 
 __all__ = ["init_rwkv_time_mix", "rwkv_time_mix", "rwkv_time_mix_decode",
            "init_rwkv_channel_mix", "rwkv_channel_mix", "RWKVState",
@@ -240,6 +253,12 @@ def rwkv_channel_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
 # Mamba (S6)
 # ===========================================================================
 
+def _inner_norm(cfg) -> bool:
+    """``cfg.mamba_inner_norm``; False for a config of the JAX package (the
+    parity tests pass one), which has no port-only field."""
+    return getattr(cfg, "mamba_inner_norm", False)
+
+
 def init_mamba(gen: torch.Generator, cfg: ModelConfig,
                dtype=torch.bfloat16) -> dict:
     d = cfg.d_model
@@ -249,7 +268,7 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig,
     dev = gen.device
     a = torch.arange(1, ds + 1, dtype=torch.float32,
                      device=dev)[None].repeat(di, 1)
-    return {
+    p = {
         "in_proj": init_linear(gen, d, 2 * di, dtype=dtype),
         "conv_w": _normal(gen, (cfg.mamba_d_conv, di), 1 / cfg.mamba_d_conv,
                           dtype),
@@ -260,6 +279,11 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig,
         "d_skip": torch.ones((di,), dtype=torch.float32, device=dev),
         "out_proj": init_linear(gen, di, d, dtype=dtype),
     }
+    if _inner_norm(cfg):
+        p.update(dt_norm=init_rms_norm(dtr, dtype, dev),
+                 b_norm=init_rms_norm(ds, dtype, dev),
+                 c_norm=init_rms_norm(ds, dtype, dev))
+    return p
 
 
 def _mamba_scan_chunked(a_t: torch.Tensor, b_t: torch.Tensor,
@@ -312,14 +336,31 @@ def _mamba_scan_chunked(a_t: torch.Tensor, b_t: torch.Tensor,
     return hs.reshape(b, n * c, di, ds)[:, :t], h
 
 
+def _scan_chunk(t: int, cap: int) -> int:
+    """The chunk of ``_mamba_scan_chunked`` for ``t`` steps: of 1..``cap``
+    the one that issues the fewest launches, 2 (c - 1) + ceil(t / c) (the
+    inner steps' two ops each, the carry's one a chunk), the largest of
+    equals.  A 512-token prefill chunk takes 16 (66 launches against 138
+    at 64), a 3072-token prompt 41."""
+    return min(range(1, max(1, min(cap, t)) + 1),
+               key=lambda c: (2 * (c - 1) + -(-t // c), -c))
+
+
 def _mamba_ssm_inputs(p: dict, xc: torch.Tensor, cfg: ModelConfig):
     """Δ [..., di], the decays exp(Δ A) [..., di, ds], the inputs
     Δ x B [..., di, ds] and C [..., ds], all fp32, from the conv output."""
     dtr, ds = cfg.resolved_dt_rank, cfg.mamba_d_state
     proj = linear(p["x_proj"], xc)
-    dt = F.softplus(linear(p["dt_proj"], proj[..., :dtr]).float())
-    bmat = proj[..., dtr:dtr + ds].float()
-    cmat = proj[..., dtr + ds:].float()
+    dt, bmat, cmat = (proj[..., :dtr], proj[..., dtr:dtr + ds],
+                      proj[..., dtr + ds:])
+    if _inner_norm(cfg):
+        eps = cfg.norm_eps
+        dt = rms_norm(p["dt_norm"], dt, eps)
+        bmat = rms_norm(p["b_norm"], bmat, eps)
+        cmat = rms_norm(p["c_norm"], cmat, eps)
+    dt = F.softplus(linear(p["dt_proj"], dt).float())
+    bmat = bmat.float()
+    cmat = cmat.float()
     a = -torch.exp(p["a_log"])                                 # [di, ds]
     decay = torch.exp(dt[..., None] * a)
     inp = (dt * xc.float())[..., None] * bmat[..., None, :]
@@ -330,15 +371,19 @@ def _mamba_ssm_inputs(p: dict, xc: torch.Tensor, cfg: ModelConfig):
 #: ``shard_map`` (small beside in_proj and out_proj, so replicated there)
 _MIX_LEAVES = (("conv_w",), ("conv_b",), ("x_proj", "w"), ("dt_proj", "w"),
                ("dt_proj", "b"), ("a_log",), ("d_skip",))
+#: and, with ``mamba_inner_norm``, the three inner norms' scales
+_NORM_LEAVES = (("dt_norm", "scale"), ("b_norm", "scale"),
+                ("c_norm", "scale"))
 
 
-def _mix_weights(p: dict) -> list:
-    return [p[k[0]] if len(k) == 1 else p[k[0]][k[1]] for k in _MIX_LEAVES]
+def _mix_weights(p: dict, cfg: ModelConfig) -> list:
+    leaves = _MIX_LEAVES + (_NORM_LEAVES if _inner_norm(cfg) else ())
+    return [p[k[0]] if len(k) == 1 else p[k[0]][k[1]] for k in leaves]
 
 
 def _mix_params(ws) -> dict:
     p = {}
-    for k, w in zip(_MIX_LEAVES, ws):
+    for k, w in zip(_MIX_LEAVES + _NORM_LEAVES, ws):
         if len(k) == 1:
             p[k[0]] = w
         else:
@@ -361,28 +406,32 @@ def mamba_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig,
     """Train/prefill.  x: [B, T, D] -> (y [B, T, D], MambaState)."""
     b, t, _ = x.shape
     di, ds, dc = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
-    u = linear(p["in_proj"], x)
-    prev = state.conv if state is not None else torch.zeros(
-        b, dc - 1, di, dtype=u.dtype, device=x.device)
-    h0 = state.h if state is not None else torch.zeros(
-        b, di, ds, dtype=torch.float32, device=x.device)
+    with trace.span("mamba.prefill", tokens=b * t):
+        u = linear(p["in_proj"], x)
+        prev = state.conv if state is not None else torch.zeros(
+            b, dc - 1, di, dtype=u.dtype, device=x.device)
+        h0 = state.h if state is not None else torch.zeros(
+            b, di, ds, dtype=torch.float32, device=x.device)
 
-    def mix(u, prev, h0, *ws):
-        q = _mix_params(ws)
-        xi, z = u.chunk(2, dim=-1)
-        # depthwise causal conv1d over time
-        xpad = torch.cat([prev, xi], dim=1)
-        conv_state = xpad[:, -(dc - 1):] if dc > 1 else prev
-        xc = sum(xpad[:, i:i + t] * q["conv_w"][i] for i in range(dc))
-        xc = F.silu(xc + q["conv_b"])
-        decay, inp, cmat = _mamba_ssm_inputs(q, xc, cfg)
-        hs, h_end = _mamba_scan_chunked(decay, inp, h0, cfg.ssm_chunk)
-        y = torch.einsum("btds,bts->btd", hs, cmat)
-        y = (y + xc.float() * q["d_skip"]).to(x.dtype)
-        return y * F.silu(z), conv_state, h_end
+        def mix(u, prev, h0, *ws):
+            q = _mix_params(ws)
+            xi, z = u.chunk(2, dim=-1)
+            # depthwise causal conv1d over time
+            xpad = torch.cat([prev, xi], dim=1)
+            conv_state = xpad[:, -(dc - 1):] if dc > 1 else prev
+            xc = sum(xpad[:, i:i + t] * q["conv_w"][i] for i in range(dc))
+            xc = F.silu(xc + q["conv_b"])
+            decay, inp, cmat = _mamba_ssm_inputs(q, xc, cfg)
+            with trace.span("mamba.scan"):
+                hs, h_end = _mamba_scan_chunked(
+                    decay, inp, h0, _scan_chunk(t, cfg.ssm_chunk))
+            y = torch.einsum("btds,bts->btd", hs, cmat)
+            y = (y + xc.float() * q["d_skip"]).to(x.dtype)
+            return y * F.silu(z), conv_state, h_end
 
-    y, conv_state, h_end = _by_rows(mix, (u, prev, h0), _mix_weights(p), 3)
-    return linear(p["out_proj"], y), MambaState(conv=conv_state, h=h_end)
+        y, conv_state, h_end = _by_rows(mix, (u, prev, h0),
+                                        _mix_weights(p, cfg), 3)
+        return linear(p["out_proj"], y), MambaState(conv=conv_state, h=h_end)
 
 
 def mamba_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -401,6 +450,7 @@ def mamba_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
         y = (y + xc.float() * q["d_skip"]).to(x.dtype)
         return y[:, None] * F.silu(z), xfull[:, 1:], h
 
-    y, conv, h = _by_rows(mix, (linear(p["in_proj"], x), state.conv,
-                                state.h), _mix_weights(p), 3)
-    return linear(p["out_proj"], y), MambaState(conv=conv, h=h)
+    with trace.span("mamba.decode", tokens=x.shape[0]):
+        y, conv, h = _by_rows(mix, (linear(p["in_proj"], x), state.conv,
+                                    state.h), _mix_weights(p, cfg), 3)
+        return linear(p["out_proj"], y), MambaState(conv=conv, h=h)

@@ -28,6 +28,17 @@ functions update the KV caches in place.  A cluster steal of a
 partially-prefilled request carries its processed KV blocks: the victim
 gathers them off its pool into device tensors, and the thief writes them
 into blocks of its own and resumes at the chunk boundary.
+
+A model whose trunk carries a recurrent state (the hybrid's Mamba conv and
+ssm states: ``Model.init_chunk_state``) prefills in chunks too: a request
+in mid-prefill holds a staged state on the device, apart from the decode
+rows (decode writes the states of every row, free ones included), which
+each chunk carries on in place and the last commits to the request's
+decode slot.  It is dropped wherever the request's blocks are released
+(finish, prune, preemption, steal), so a resumed prefill restarts from
+chunk 0; ``io_stats`` counts ``mamba_states_staged``,
+``mamba_states_committed`` and the bytes staged now,
+``mamba_staged_bytes``.  Such a model takes no prefix cache.
 """
 from __future__ import annotations
 
@@ -48,6 +59,10 @@ from .paged_kv import (BlockAllocator, PoolExhausted, SINK_BLOCK,
 from .speculative import Speculator
 
 __all__ = ["ServingEngine"]
+
+
+def _nbytes(tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors)
 
 
 class ServingEngine:
@@ -114,7 +129,7 @@ class ServingEngine:
         # requests; it needs the chunk path to resume behind an adopted
         # prefix.
         self.prefix_cache = bool(prefix_cache and kv_mode == "paged"
-                                 and model.prefill_chunk_paged is not None)
+                                 and model.supports_prefix_cache)
         self._keys: Dict[int, list] = {}     # rid -> chained block keys
         self.cache_stats = {"hit_tokens": 0, "miss_tokens": 0,
                             "hit_requests": 0, "lookup_requests": 0}
@@ -125,6 +140,16 @@ class ServingEngine:
         #: spans (``max_batch * cap``)
         self.io_stats = {"h2d_copies": 0, "h2d_bytes": 0, "d2h_reads": 0,
                          "kv_live_tokens": 0, "kv_view_tokens": 0}
+        #: a chunk-prefilled request's carried state, by rid, from its
+        #: first chunk until its last commits it to its decode slot
+        self._staged: Dict[int, Any] = {}
+        self._init_state = self._commit_state = None
+        if self.paged and model.init_chunk_state is not None:
+            self._init_state = model.init_chunk_state
+            self._commit_state = model.commit_chunk_state
+            self.io_stats.update(mamba_states_staged=0,
+                                 mamba_states_committed=0,
+                                 mamba_staged_bytes=0)
         #: rids whose current prefill cycle already hit the stats
         self._stat_seen: set = set()
         #: (token_bytes, keys) memo keyed by content
@@ -308,6 +333,33 @@ class ServingEngine:
             self.speculator.drop_request(rid)
         self._stat_seen.discard(rid)
         self._keys.pop(rid, None)
+        if self._staged:
+            self._drop_state(rid)
+
+    # -- a chunk-prefilled request's carried state ---------------------------
+    def _drop_state(self, rid: int) -> None:
+        st = self._staged.pop(rid, None)
+        if st is not None:
+            self.io_stats["mamba_staged_bytes"] -= _nbytes(st)
+
+    def _chunk_state(self, req: Request):
+        """The state ``req``'s next chunk starts from: a fresh (zero) one at
+        its first chunk, else the one its previous chunk left."""
+        if req.prefilled == 0:
+            self._drop_state(req.rid)
+            st = self._staged[req.rid] = self._init_state()
+            self.io_stats["mamba_states_staged"] += 1
+            self.io_stats["mamba_staged_bytes"] += _nbytes(st)
+            return st
+        return self._staged[req.rid]
+
+    def _commit_chunk_state(self, rid: int, slot: int) -> None:
+        st = self._staged.get(rid) if self._staged else None
+        if st is None:
+            return
+        self.cache = self._commit_state(self.cache, st, slot)
+        self._drop_state(rid)
+        self.io_stats["mamba_states_committed"] += 1
 
     def _prompt_keys(self, tokens) -> list:
         """Chained block keys of ``tokens``, memoized on token content."""
@@ -646,10 +698,11 @@ class ServingEngine:
         if chunked:
             start = req.prefilled
             toks = self.prompts[rid][start:start + chunk]
+            batch = {"tokens": self._upload(toks[None, :].astype(np.int64))}
+            if self._init_state is not None:
+                batch["mamba_state"] = self._chunk_state(req)
             logits, self.cache = self._prefill_chunk(
-                self.params,
-                {"tokens": self._upload(toks[None, :].astype(np.int64))},
-                self.cache, self._row_dev(rid), start)
+                self.params, batch, self.cache, self._row_dev(rid), start)
         else:
             toks = self._upload(self.prompts[rid][None, :].astype(np.int64))
             logits, cache_one = self._prefill(self.params, {"tokens": toks})
@@ -677,6 +730,7 @@ class ServingEngine:
                 self.batcher.finish_running(req)
                 self._release(rid)
                 return True
+            self._commit_chunk_state(rid, slot)
             self._take_slot(slot, req, nxt, req.prompt_len)
         return True
 

@@ -21,13 +21,19 @@ Whoever turns tracing on reads the records with :func:`take`.  The spans
   ``bytes``), ``engine.read`` (a device-to-host read of sampled tokens) and
   ``engine.emit`` (the bookkeeping after decode);
 * ``model.decode``, ``model.prefill_chunk``, ``model.prefill``: the paged
-  model's decode step, a prompt chunk, a whole prompt; ``model.unembed``:
-  the final norm and the output head;
+  model's decode step, a prompt chunk, a whole prompt (the transformer's
+  and the hybrid's); ``model.unembed``: the final norm and the output
+  head;
 * ``attn.qkv``, ``attn.kv_write``, ``attn.gather`` (the block table's
   logical view of K and V; attr ``bytes``), ``attn.core``, ``attn.out``:
   one paged attention layer;
 * ``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``: one
-  MoE layer.
+  MoE layer;
+* ``mamba.prefill``, ``mamba.decode``: one Mamba layer's work from in_proj
+  to out_proj (attr ``tokens``); ``mamba.scan``: the chunked scan inside
+  ``mamba.prefill``;
+* ``hybrid.state_commit``: a chunk-prefilled request's carried Mamba state
+  copied into its decode slot after its last chunk.
 
 The host enqueues device work without waiting for it, so a span times the
 host: the time to issue its kernels, or the time it was blocked on the
@@ -48,7 +54,9 @@ NAMES = ("engine.step", "engine.plan", "engine.prefill", "engine.kv_blocks",
          "model.decode", "model.prefill_chunk", "model.prefill",
          "model.unembed",
          "attn.qkv", "attn.kv_write", "attn.gather", "attn.core", "attn.out",
-         "moe.route", "moe.dispatch", "moe.experts", "moe.combine")
+         "moe.route", "moe.dispatch", "moe.experts", "moe.combine",
+         "mamba.prefill", "mamba.scan", "mamba.decode",
+         "hybrid.state_commit")
 
 
 class Span(NamedTuple):

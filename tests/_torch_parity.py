@@ -18,13 +18,25 @@ from repro_torch.params import from_numpy_params
 FP32 = dict(dtype="float32", param_dtype="float32")
 
 
+def assert_same_config(jcfg, tcfg):
+    """The port's config has every field of the reference's, equal, and
+    its port-only fields (``ModelConfig``'s marked block, which the
+    reference has not) at their defaults: the behaviour both share."""
+    want = dataclasses.asdict(jcfg)
+    got = dataclasses.asdict(tcfg)
+    assert {k: got[k] for k in want if k in got} == want
+    defaults = {f.name: f.default for f in dataclasses.fields(tcfg)}
+    assert {k: v for k, v in got.items() if k not in want} == \
+        {k: defaults[k] for k in got if k not in want}
+
+
 def configs(arch="qwen2-1.5b", layers=2, **over):
     """(reference cfg, port cfg): scaled-down ``arch`` in fp32."""
     jcfg = jax_scale_down(jax_get_config(arch), layers=layers).replace(
         **FP32, **over)
     tcfg = scale_down(get_config(arch), layers=layers).replace(**FP32,
                                                                **over)
-    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    assert_same_config(jcfg, tcfg)
     return jcfg, tcfg
 
 

@@ -10,7 +10,6 @@ helpers (``test_torch_transformer``, ``test_torch_speculative``,
 ``test_torch_engine``) on these configs, with their tolerances: logits
 1e-4 and caches 1e-5 absolute, verify logits 1e-5; greedy tokens
 identical; the combine exact."""
-import dataclasses
 import os
 import pathlib
 import subprocess
@@ -29,7 +28,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.device import moe_balance as tmb
 from repro_torch.serving import ServingEngine as TorchEngine
 
-from _torch_parity import models, to_np
+from _torch_parity import assert_same_config, models, to_np
 from test_torch_engine import MODES, _paged_decode_bit_identical, _serve
 from test_torch_engine import _prompts as _engine_prompts
 from test_torch_speculative import ATOL as VERIFY_ATOL
@@ -64,8 +63,7 @@ def _bridged(arch, seed, **over):
 
 @pytest.mark.parametrize("arch", NEW_ARCHS)
 def test_config_equals_the_reference(arch):
-    assert dataclasses.asdict(get_config(arch)) == \
-        dataclasses.asdict(jax_get_config(arch))
+    assert_same_config(jax_get_config(arch), get_config(arch))
 
 
 def test_scaled_shapes_keep_what_they_test():

@@ -593,6 +593,31 @@ def test_moe_dispatch_matches_plain_on_card(t, e, k, cap, ties):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t,e,k", [(32, 16, 2), (512, 16, 2), (17, 8, 3)])
+def test_moe_route_without_renormalising_on_card(t, e, k):
+    """The route kernel with ``renormalize=False`` (Jamba's router) against
+    ``route_topk(renormalize=False)``: the same experts, and gates equal to
+    the top-k probabilities within 1e-6; the default renormalises as
+    before."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.core.device import moe_balance as mb
+    g = torch.Generator(device="cuda").manual_seed(t + e)
+    logits = torch.randn(t, e, generator=g, device="cuda") * 2
+    for renormalize in (False, True):
+        routing = md_ops.moe_route(logits, k, alt=True,
+                                   renormalize=renormalize)
+        idx, gate, probs = mb.route_topk(logits, k, renormalize=renormalize)
+        assert torch.equal(routing.expert_idx, idx), renormalize
+        torch.testing.assert_close(routing.gate, gate, rtol=0, atol=1e-6)
+        torch.testing.assert_close(routing.probs, probs, rtol=0, atol=1e-6)
+    plain = md_ops.moe_route(logits, k, renormalize=False)
+    torch.testing.assert_close(
+        plain.gate, torch.gather(plain.probs, 1, plain.expert_idx.long()),
+        rtol=0, atol=0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("t,e,k,cap", [(48, 8, 2, 6), (512, 8, 2, 512)])
 def test_moe_dispatch_global_lists_on_card(t, e, k, cap, monkeypatch):
     """An expert's list past ``RANK_SMEM_LIMIT`` bytes goes to a global

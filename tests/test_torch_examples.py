@@ -7,7 +7,6 @@ greedy tokens, batcher metrics, allocator state, steal counts, prefix
 sums, UTS node counts, pop order and speculative stream come out.  Each
 model-building script fails loudly without a CUDA device unless asked for
 the CPU."""
-import dataclasses
 import importlib.util
 import os
 import pathlib
@@ -24,6 +23,8 @@ from repro_torch.configs import get_config, scale_down
 from repro_torch.core import StrategyScheduler, WorkStealingScheduler
 from repro_torch.models import build_model
 from repro_torch.params import from_numpy_params
+
+from _torch_parity import assert_same_config
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 REF = ROOT / "examples"
@@ -57,7 +58,7 @@ def _reference(name: str, *argv) -> dict:
 def _bridge(ref: dict, **scale):
     """The port's model on the CPU with the reference run's weights."""
     cfg = scale_down(get_config("qwen2-1.5b"), **scale).replace(**FP32)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref["cfg"])
+    assert_same_config(ref["cfg"], cfg)
     model = build_model(cfg, "cpu")
     tree = jax.tree.map(np.asarray, ref["params"])
     return model, from_numpy_params(tree, cfg, "cpu")

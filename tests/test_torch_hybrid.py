@@ -325,17 +325,24 @@ def _serve(eng, prompts, max_new=5):
 def test_engine_tokens_match_reference(plain, kv_mode):
     """The counterpart of the reference's paged hybrid engine test: prompts
     of 2, 9 and 14 tokens on 2 slots (a slot is reused), the JAX engine's
-    tokens and plans; chunking is off (no chunk path)."""
+    tokens and plans, with the port's chunking off (the JAX engine has no
+    chunk path for the hybrid and prefills whole).  The port's paged
+    engine, which chunks the hybrid (chunks of 8, the Mamba state carried),
+    gives the JAX engine's tokens too."""
     jmodel, jp, tmodel, tp = plain
     rng = np.random.default_rng(15)
     prompts = [rng.integers(0, jmodel.cfg.vocab_size, n) for n in (2, 9, 14)]
     kw = dict(max_batch=2, s_max=32, block_size=8, kv_mode=kv_mode,
               prefill_chunk=8)
     want, jeng = _serve(JaxEngine(jmodel, jp, **kw), prompts)
-    got, teng = _serve(TorchEngine(tmodel, tp, **kw), prompts)
+    assert jeng.batcher.prefill_chunk is None
+    got, teng = _serve(TorchEngine(tmodel, tp, **dict(kw, prefill_chunk=None)),
+                       prompts)
     assert got == want
     assert teng.batcher.metrics == jeng.batcher.metrics
-    assert teng.batcher.prefill_chunk is None
+    got, teng = _serve(TorchEngine(tmodel, tp, **kw), prompts)
+    assert got == want
+    assert teng.batcher.prefill_chunk == (8 if kv_mode == "paged" else None)
 
 
 def _steal(engine_cls, model, params, prompt):

@@ -7,6 +7,7 @@ import importlib
 import inspect
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -187,6 +188,15 @@ APPS = ("__init__", "bipartition", "prefix_sum", "quicksort", "sssp",
 CLUSTER_MODULES = ("__init__", "chaos", "telemetry", "replica", "router",
                    "sim")
 COPY_HEADER = "# Copied from src/repro/{}; only the imports may differ.\n"
+#: the header of a copy that adds fields of the port's own in one marked
+#: block (``configs/base.py``: ``ModelConfig``'s port-only fields)
+COPY_BLOCK_HEADER = ("# Copied from src/repro/{}; only the imports and the "
+                     "port-only block may differ.\n")
+PORT_ONLY_BLOCK = re.compile(r"^ *# -- port-only:.*?^ *# -- end port-only\n",
+                             re.M | re.S)
+#: a line of that block that is not a comment: a dataclass field with a
+#: literal default, ``name: type = literal``
+PORT_ONLY_FIELD = re.compile(r"^ *(\w+): [\w\[\], .]+ = (.+)$")
 COPIES = sorted(p for p in PKG.rglob("*.py")
                 if p.read_text().startswith("# Copied from "))
 
@@ -218,13 +228,31 @@ def test_copies_are_found():
                          ids=lambda p: str(p.relative_to(PKG)))
 def test_copy_equals_its_reference(path):
     """A module headed "Copied from" is its reference, byte for byte, apart
-    from that header and its import lines."""
+    from that header, its import lines and, where the header says so, one
+    marked block of port-only lines."""
     rel = path.relative_to(PKG).as_posix()
     text = path.read_text()
-    header = COPY_HEADER.format(rel)
-    assert text.startswith(header)
     ref = (ROOT / "src" / "repro" / rel).read_text()
-    assert _without_imports(text[len(header):]) == _without_imports(ref)
+    if text.startswith(COPY_BLOCK_HEADER.format(rel)):
+        # everything outside the one marked block is the reference's
+        body, blocks = PORT_ONLY_BLOCK.subn(
+            "", text[len(COPY_BLOCK_HEADER.format(rel)):])
+        assert blocks == 1
+        # which holds only comments and fields of the port's own
+        block = PORT_ONLY_BLOCK.search(text).group()
+        for line in block.splitlines():
+            if not line.strip() or line.strip().startswith("#"):
+                continue
+            field = PORT_ONLY_FIELD.match(line)
+            assert field, f"not a comment or a field: {line!r}"
+            ast.literal_eval(field.group(2))
+            assert not re.search(rf"^ *{field.group(1)}\b *[:=]", ref,
+                                 re.M), f"the reference has {field.group(1)}"
+    else:
+        header = COPY_HEADER.format(rel)
+        assert text.startswith(header)
+        body = text[len(header):]
+    assert _without_imports(body) == _without_imports(ref)
 
 
 #: the strategy half of ``serving/speculative.py``: a copy of the
@@ -300,16 +328,19 @@ def test_launcher_equality_gate_on_cpu_rwkv():
 
 def test_launcher_equality_gate_on_cpu_hybrid():
     """Scaled jamba-v0.1-52b (one superblock of 4 layers): contiguous and
-    paged give the same tokens; the chunk modes are skipped (no chunk
-    path, as in the reference)."""
+    paged give the same tokens; chunked prefill, which carries each
+    request's Mamba state from chunk to chunk (beyond the reference, which
+    has no chunk path for the hybrid), gives them too; the prefix-cache
+    mode is skipped (a Mamba state cannot be adopted with a prefix)."""
     out = subprocess.run(SERVE + ["--device", "cpu", "--arch",
                                   "jamba-v0.1-52b"], env=ENV, cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "OK: paged decode == contiguous decode (4 requests)" in out.stdout
-    for mode in ("paged+chunked", "paged+cache"):
-        assert f"{mode}: family 'hybrid' has no chunk path — skip" \
-            in out.stdout
+    assert "OK: chunked prefill token counts match (token-exact: True)" \
+        in out.stdout
+    assert "paged+cache: family 'hybrid' has no prefix cache — skip" \
+        in out.stdout
 
 
 def test_launcher_spec_draft_refuses_hybrid():

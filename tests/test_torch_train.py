@@ -55,7 +55,8 @@ ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
 
 #: family -> (arch, config overrides; the droppy MoE's capacity sheds
 #: assignments at this batch); the sequence (20) spans two scan chunks of
-#: the scaled-down SSMs (16) with a padded tail
+#: the scaled-down RWKV (16) with a padded tail, and five of Mamba's (4,
+#: the chunk ``models/ssm.py::_scan_chunk`` takes for 20 steps)
 FAMILIES = {"dense": ("qwen2-1.5b", {}),
             "moe": ("mixtral-8x22b", {}),
             "moe_droppy": ("mixtral-8x22b", {"moe_dropless": False,
