@@ -8,9 +8,9 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
 
 1. device: CUDA present with capability (9, 0); the card's name and power
    limit from nvidia-smi; TF32 off.
-2. build: nvcc builds the flash-attention, grouped-SwiGLU, WKV-6 and
-   prefix-scan libraries from ``csrc/``, all at once; build seconds and
-   ptxas registers and spills.
+2. build: nvcc builds the flash-attention, grouped-SwiGLU, WKV-6,
+   prefix-scan, MoE-dispatch and Mamba libraries from ``csrc/``, all at
+   once; build seconds and ptxas registers and spills.
 3. kernels: each hand-written kernel against its plain PyTorch version at
    the main paths' shapes, within the stated tolerances; the kernel's, the
    plain version's and the library yardstick's times (CUDA events, median
@@ -79,6 +79,15 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      kernel's routing, the combine's bits those of
      ``combine_expert_outputs``, twice; kernels a call, device ms and the
      host's microseconds to issue the three steps, fused against plain;
+   - the Mamba mixer's conv and selective scan (``phase_mamba_kernel``) at
+     Jamba2-Mini's mixer (d_inner 8192, d_state 16, the inner norms on),
+     bf16: decode (B = 32, one step), a 512-token chunk, and a 3072-token
+     prompt's six chunks carrying the state, and fp32 (the instantiations
+     of the fp32 hand-off): decode and a chunk; against the plain mixer
+     (``mamba_scan/ref.py``) within TOL, the same bits twice; kernels a
+     call, Kernel, Device and Plain ms, the host's microseconds to issue,
+     and the bound (the conv's bytes, then the scan's bytes or its decays'
+     exps on the SFUs, whichever is longer);
    - the prefix scan: kernel_bench's (4, 1024) and (8, 8192), R = N = 4096
      in fp32, int32 (exact) and bf16 (one tile a row), and rows that the
      look-back chains: four of 2^22, one of 2^20 + 13 (ragged), one of 2^24
@@ -180,8 +189,10 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    ``alloc.check()``, logits finite, the staged states all committed,
    grouped SwiGLU and the dispatch launched once a MoE layer in every
    chunk and decode call, flash once a superblock in every decode call
-   and in no chunk call (a chunk's attention is the masked path), and no
-   whole-prompt prefill.  The chunked path's logits are held against the
+   and in no chunk call (a chunk's attention is the masked path), the two
+   Mamba kernels once each a Mamba layer in every call (main path 4 too),
+   every Mamba token on the scan kernel, a profiled 512-token layer call
+   putting exactly those two on the card, and no whole-prompt prefill.  The chunked path's logits are held against the
    plain reference by ``tests/test_torch_jamba2.py`` on the CPU and by
    the benchmark's ``correct`` on the card.
 
@@ -311,6 +322,7 @@ card's name and power limit; the last is ``{"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import importlib.util
 import json
@@ -348,6 +360,9 @@ from repro_torch.core.device.moe_balance import (  # noqa: E402
 from repro_torch.kernels.flash_attention import build, ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_plain)
+from repro_torch.kernels.mamba_scan import build as mamba_build  # noqa: E402
+from repro_torch.kernels.mamba_scan import ops as mamba_ops  # noqa: E402
+from repro_torch.kernels.mamba_scan import ref as mamba_ref  # noqa: E402
 from repro_torch.kernels.moe_dispatch import build as md_build  # noqa: E402
 from repro_torch.kernels.moe_dispatch import ops as md_ops  # noqa: E402
 from repro_torch.kernels.moe_dispatch import ref as md_ref  # noqa: E402
@@ -367,6 +382,7 @@ from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models.attention import PagedKVCache  # noqa: E402
 from repro_torch.models.transformer import _layer  # noqa: E402
 from repro_torch.optim import adamw_init  # noqa: E402
@@ -407,6 +423,11 @@ MOE_DISPATCH_KERNEL = dict(
 WKV_KERNEL = dict(name="wkv6", route="cuda",
                   source="src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
                   replaces="src/repro/kernels/wkv6/kernel.py:67")
+MAMBA_KERNEL = dict(
+    name="mamba_scan", route="cuda",
+    source="src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+    replaces="none: XLA fuses src/repro/models/ssm.py::mamba_fwd's conv "
+             "and scan")
 SCAN_KERNEL = dict(name="prefix_scan", route="cuda",
                    source="src/repro_torch/kernels/prefix_scan/csrc/"
                           "prefix_scan.cu",
@@ -417,6 +438,7 @@ SCAN_KERNEL = dict(name="prefix_scan", route="cuda",
 COUNTERS = {"flash_attention": ops.flash_attention,
             "grouped_swiglu": gmm_ops.grouped_swiglu,
             "moe_dispatch": md_ops.moe_dispatch,
+            "mamba_scan": mamba_ops.mamba_scan,
             "wkv6": wkv_ops.wkv6,
             "prefix_scan": scan_ops.prefix_scan}
 #: max |logit| difference the reference allows its bf16 path between two
@@ -580,7 +602,8 @@ def phase_build() -> None:
     """Every library at once: one nvcc each, started together."""
     libs = {"flash_attention": build.LIBRARY, "moe_gmm": gmm_build.LIBRARY,
             "wkv6": wkv_build.LIBRARY, "prefix_scan": scan_build.LIBRARY,
-            "moe_dispatch": md_build.LIBRARY}
+            "moe_dispatch": md_build.LIBRARY,
+            "mamba_scan": mamba_build.LIBRARY}
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(lib.build) for name, lib in libs.items()}
         built = {name: f.result() for name, f in futures.items()}
@@ -1215,6 +1238,153 @@ def phase_moe_dispatch(seed: int) -> list:
     return rows
 
 
+#: the Mamba phase at Jamba2-Mini's mixer (jamba-v0.1-52b's widths, the
+#: inner norms on): (case, B, steps a call, calls carrying the state,
+#: dtype); the third is a 3072-token prompt in the benchmark's 512-token
+#: chunks; the fp32 rows are the instantiations main path 4's fp32
+#: hand-off runs
+MAMBA_SHAPES = (("jamba2_decode", 32, 1, 1, torch.bfloat16),
+                ("jamba2_chunk", 1, 512, 1, torch.bfloat16),
+                ("jamba2_prompt3072", 1, 512, 6, torch.bfloat16),
+                ("jamba2_decode", 32, 1, 1, torch.float32),
+                ("jamba2_chunk", 1, 512, 1, torch.float32))
+#: exps a second on an H100 SXM: 16 a clock on each SM's SFUs, 132 SMs at
+#: the 1.98 GHz boost clock; a decay exp(Δ A) is one
+SFU_EXP_S = 16 * 132 * 1.98e9
+
+
+def _mamba_case(g, cfg, b, t, calls, dtype):
+    """Seeded inputs of ``calls`` mixer calls (x and z in place in an
+    in_proj output, B and C in an x_proj output, Δ around softplus^-1 of
+    0.05; decode's are one step, [B, ...]), the weights, and the starting
+    conv state and h."""
+    di, ds, dc = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
+    dtr = cfg.resolved_dt_rank
+
+    def rand(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale
+                + shift).to(dtype)
+
+    def per_token(width, **kw):
+        x = rand(b, t, width, **kw)
+        return x[:, 0] if t == 1 else x
+    steps = []
+    for _ in range(calls):
+        u = per_token(2 * di)
+        proj = per_token(dtr + 2 * ds)
+        steps.append(dict(x=u[..., :di], z=u[..., di:], bc=proj[..., dtr:],
+                          dt=per_token(di, scale=0.5, shift=-3.0)))
+    w = dict(w=rand(dc, di, scale=0.5), bias=rand(di, scale=0.1),
+             a_log=torch.log(torch.arange(1, ds + 1, device="cuda").float()
+                             ).repeat(di, 1),
+             d_skip=torch.ones(di, device="cuda"),
+             b_norm=rand(ds, scale=0.1, shift=1.0),
+             c_norm=rand(ds, scale=0.1, shift=1.0))
+    return steps, w, rand(b, dc - 1, di), torch.randn(
+        b, di, ds, generator=g, device="cuda")
+
+
+def _mamba_calls(conv, scan, steps, w, conv0, h0, eps):
+    """The mixer's conv and scan over ``steps``, the state carried:
+    (the last call's y, the last conv state, the last h)."""
+    state, h = conv0, h0
+    for s in steps:
+        xc, state = conv(s["x"], state, w["w"], w["bias"])
+        y, h = scan(xc, s["dt"], s["bc"], s["z"], w["a_log"], w["d_skip"],
+                    h, w["b_norm"], w["c_norm"], eps)
+    return y, state, h
+
+
+def phase_mamba_kernel(seed: int) -> list:
+    """``mamba_conv`` and ``mamba_scan`` against the plain mixer
+    (``ref.mamba_conv_plain``, ``ref.mamba_scan_plain``) at
+    ``MAMBA_SHAPES``, bf16 and fp32, Δ fed straight in (dt_proj's output):
+    y, the conv state and h within the dtype's TOL of the plain's (scaled
+    by max(1, |plain|)), the next conv state equal, the same bits twice;
+    the plain scan in chunks of jamba-v0.1-52b's ``ssm_chunk``; kernels a
+    call, Kernel ms (CUDA events, L2
+    flushed), Device ms (torch.profiler), Plain ms, the host's microseconds
+    to issue, and the bound: the conv's bytes over HBM plus the larger of
+    the scan's bytes over HBM and its decays over the SFUs' exp rate; the
+    scan alone, its device ms and bound."""
+    cfg = get_config("jamba-v0.1-52b")
+    di, ds, dc = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
+    eps = cfg.norm_eps
+    plain_scan = functools.partial(mamba_ref.mamba_scan_plain,
+                                   chunk=cfg.ssm_chunk)
+    g = torch.Generator(device="cuda").manual_seed(seed + 31)
+    rows = []
+    for case, b, t, calls, dtype in MAMBA_SHAPES:
+        steps, w, conv0, h0 = _mamba_case(g, cfg, b, t, calls, dtype)
+        elt = dtype.itemsize
+
+        def fused():
+            return _mamba_calls(mamba_ops.mamba_conv, mamba_ops.mamba_scan,
+                                steps, w, conv0, h0, eps)
+
+        def plain():
+            return _mamba_calls(mamba_ref.mamba_conv_plain, plain_scan,
+                                steps, w, conv0, h0, eps)
+
+        xc_last = mamba_ops.mamba_conv(steps[-1]["x"], conv0, w["w"],
+                                       w["bias"])[0]
+
+        def scan_only():
+            s = steps[-1]
+            return mamba_ops.mamba_scan(xc_last, s["dt"], s["bc"], s["z"],
+                                        w["a_log"], w["d_skip"], h0,
+                                        w["b_norm"], w["c_norm"], eps)
+
+        got, again, want = fused(), fused(), plain()
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, bb in zip(("y", "conv", "h"), got, want):
+            bb = bb.float()
+            errs[name] = ((a.float() - bb).abs().max().item()
+                          / max(1.0, bb.abs().max().item()))
+        same = all(torch.equal(a, bb) for a, bb in zip(got, again))
+        if max(errs.values()) > TOL[dtype] or not same \
+                or not torch.equal(got[1], want[1]):
+            raise AssertionError(f"mamba {case}: errors {errs}, same bits "
+                                 f"twice {same}")
+        n = b * t * calls
+        conv_bytes = calls * (2 * b * t * di * elt + 2 * b * (dc - 1) * di
+                              * elt + dc * di * elt)
+        scan_bytes = calls * (4 * b * t * di * elt + b * t * 2 * ds * elt
+                              + 2 * b * di * ds * 4 + di * ds * 4)
+        exps = n * di * ds
+        scan_bound = max(scan_bytes / HBM_BYTES_S, exps / SFU_EXP_S) * 1e3
+        rows.append(dict(
+            MAMBA_KERNEL, case=f"{case}/{str(dtype)[6:]}", path=JAMBA2,
+            kernel_route=mamba_ops.kernel_route(dtype),
+            shape=dict(B=b, T=t, calls=calls, d_inner=di, d_state=ds,
+                       d_conv=dc), errors=errs,
+            kernels=_kernels_a_call(fused), plain_kernels=_kernels_a_call(
+                plain),
+            ms=_time_ms(fused), plain_ms=_time_ms(plain),
+            device_ms=_device_ms(fused, reps=5),
+            plain_device_ms=_device_ms(plain, reps=5),
+            bound_ms=conv_bytes / HBM_BYTES_S * 1e3 + scan_bound,
+            bound="exps" if exps / SFU_EXP_S > scan_bytes / HBM_BYTES_S
+            else "bytes",
+            scan_device_ms=_device_ms(scan_only, reps=5) * calls,
+            scan_bound_ms=scan_bound,
+            host_us=_issue_us(fused), plain_host_us=_issue_us(plain)))
+        row = rows[-1]
+        print(f"kernel mamba {row['case']} B={b} T={t} x{calls}: errors "
+              f"{errs}, same bits twice; kernels {row['kernels']} (plain "
+              f"{row['plain_kernels']}); {row['ms']} ms (plain "
+              f"{row['plain_ms']}), device {row['device_ms']} ms (plain "
+              f"{row['plain_device_ms']}), bound {row['bound_ms']} ms "
+              f"({row['bound']}); scan device {row['scan_device_ms']} ms, "
+              f"bound {row['scan_bound_ms']} ms; host {row['host_us']} us "
+              f"to issue (plain {row['plain_host_us']})")
+        del steps, w, conv0, h0, got, again, want, xc_last
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _wkv_fp64(r, k, v, w, u, s0, heads):
     """The recurrence in fp64 for batch row 0 and ``heads``: (y, s_end)."""
     sl = (0, slice(None), heads)
@@ -1562,30 +1732,69 @@ def phase_jamba2_chunked(cfg, seed, prompts) -> dict:
     flash never (a chunk attends over the paged pool through the masked
     ``_sdpa`` path, as the reference's chunk path does); each decode call
     launches flash once a superblock; every staged state is committed to
-    its decode slot and none is left."""
+    its decode slot and none is left.  Every Mamba layer call takes the
+    two Mamba kernels (``mamba_scan.launches`` two a layer a call, the
+    scan kernel every token the Mamba layers ran: ``io_stats``'s
+    ``mamba_kernel_tokens`` equal to ``mamba_layer_tokens``), and a
+    512-token layer call, profiled, puts exactly the conv and the scan
+    kernel of ``mamba_scan.cu`` on the card."""
     cfg = cfg.replace(mamba_inner_norm=True, moe_renormalize=False)
     model, params = _init(cfg, seed)
     n_sb = cfg.num_layers // cfg.attn_every
     moe = n_sb * (cfg.attn_every // cfg.moe_layer_period)
+    mamba = 2 * n_sb * (cfg.attn_every - 1)
     stats = phase_main_path(
         model, params, prompts, s_max=2048, max_new=16, kv_mode="paged",
         prefill_chunk=JAMBA2_CHUNK, name=JAMBA2,
         kernels={"flash_attention": (n_sb, n_sb, 0),
                  "grouped_swiglu": (moe, moe, moe),
-                 "moe_dispatch": (moe, moe, moe)})
+                 "moe_dispatch": (moe, moe, moe),
+                 "mamba_scan": (mamba, mamba, mamba)})
     chunks = sum(-(-len(p) // JAMBA2_CHUNK) for p in prompts)
     want = dict(mamba_states_staged=len(prompts),
                 mamba_states_committed=len(prompts), mamba_staged_bytes=0)
+    states = stats["mamba_states"]
     if stats["chunk_calls"] != chunks or stats["prefill_calls"] \
-            or stats["mamba_states"] != want:
+            or {k: states[k] for k in want} != want \
+            or not 0 < states["mamba_kernel_tokens"] \
+            == states["mamba_layer_tokens"]:
         raise AssertionError(f"{JAMBA2}: {stats['chunk_calls']} chunk calls "
                              f"(expected {chunks}), {stats['prefill_calls']} "
-                             f"whole prefills, states "
-                             f"{stats['mamba_states']} (expected {want})")
+                             f"whole prefills, states {states} (expected "
+                             f"{want}, every Mamba token on the kernels)")
+    stats["mamba_layer_call"] = _mamba_layer_kernels(model, params)
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
     return stats
+
+
+def _mamba_layer_kernels(model, params) -> dict:
+    """One Mamba layer's ``mamba_fwd`` over a 512-token chunk, profiled:
+    the Mamba kernels it puts on the card, by name, and what
+    ``mamba_scan.launches`` counted; fails unless the two are the conv and
+    the scan, once each."""
+    layer = next(lay["mamba"] for lay in
+                 _layer(params["superblocks"], 0)["layers"] if "mamba" in lay)
+    x = torch.randn(1, JAMBA2_CHUNK, model.cfg.d_model, device="cuda").to(
+        layer["in_proj"]["w"].dtype)
+    before = mamba_ops.mamba_scan.launches
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ssm.mamba_fwd(layer, x, model.cfg)
+        torch.cuda.synchronize()
+    names = sorted(ev.name for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and "mamba_" in ev.name)
+    counted = mamba_ops.mamba_scan.launches - before
+    if counted != 2 or len(names) != 2 or not (
+            "mamba_conv_kernel" in names[0]
+            and "mamba_scan_kernel" in names[1]):
+        raise AssertionError(f"a Mamba layer call: kernels {names}, "
+                             f"counted {counted}; expected the conv and "
+                             f"the scan, once each")
+    print(f"{JAMBA2}: a Mamba layer call launches {names}")
+    return {"kernels": names, "counted": counted}
 
 
 def phase_paged_equals_contiguous(model, params, prompts, s_max) -> None:
@@ -3187,6 +3396,7 @@ def main() -> int:
     phase_flash_probe()
     gmm_rows = phase_gmm_kernel(args.seed)
     moe_rows = phase_moe_dispatch(args.seed)
+    mamba_rows = phase_mamba_kernel(args.seed)
     wkv_rows = phase_wkv6_kernel(args.seed)
     scan_rows = phase_scan_kernel(args.seed)
     scan_path = phase_scan_path(args.seed)
@@ -3292,11 +3502,13 @@ def main() -> int:
     prompts = _prompts(rng, 8, cfg.vocab_size)
     n_sb = cfg.num_layers // cfg.attn_every
     moe = n_sb * (cfg.attn_every // cfg.moe_layer_period)
+    mamba = 2 * n_sb * (cfg.attn_every - 1)
     jamba = phase_main_path(model, params, prompts, s_max=2048, max_new=16,
                             kv_mode="paged",
                             kernels={"flash_attention": (n_sb, n_sb),
                                      "grouped_swiglu": (moe, moe),
-                                     "moe_dispatch": (moe, moe)})
+                                     "moe_dispatch": (moe, moe),
+                                     "mamba_scan": (mamba, mamba)})
     phase_paged_equals_contiguous(model, params, prompts[:4], 2048)
     handoff = {"bf16": phase_hybrid_handoff(model, params, prompts[:4]),
                "bf16_bound": BF16_LOGIT_TOL}
@@ -3418,7 +3630,8 @@ def main() -> int:
     own_runs["qwen2-1.5b trained, served"] = train["served"]["launches"]
     for name, run in examples["full_width"].items():
         own_runs[f"example {name}"] = run["launches"]
-    rows = flash_rows + gmm_rows + moe_rows + wkv_rows + scan_rows
+    rows = (flash_rows + gmm_rows + moe_rows + mamba_rows + wkv_rows
+            + scan_rows)
     for row in rows:
         if "kernel_route" in row and row["case"].endswith("/float32"):
             n = {run: c[(row["name"], row["kernel_route"])]

@@ -11,8 +11,10 @@ The four kernels, one for each TPU kernel of ``repro``:
 * ``prefix_scan.prefix_scan`` (``csrc/prefix_scan.cu``).
 
 Besides them ``moe_dispatch`` (``csrc/moe_dispatch.cu``: the MoE layer's
-route, dispatch plan, expert-buffer gather and combine) replaces no TPU
-kernel: XLA fuses those steps of the JAX package's MoE layer.
+route, dispatch plan, expert-buffer gather and combine) and
+``mamba_scan`` (``csrc/mamba_scan.cu``: the Mamba mixer's conv and
+selective scan) replace no TPU kernel: XLA fuses those steps of the JAX
+package's MoE and Mamba layers.
 
 Import a kernel from its package (``from repro_torch.kernels.wkv6 import
 wkv6``): binding the wrappers here would shadow the packages of the same

@@ -56,6 +56,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..configs import get_config
 from ..device import resolve_device
+from ..kernels.mamba_scan.ref import scan_chunk, scan_chunked
 from ..models import build_model, ssm
 from ..models.transformer import _layer
 from ..serving import ServingEngine
@@ -121,7 +122,7 @@ def _window(fn, units: int) -> tuple[dict, profile]:
 
 def _mamba_windows(cfg, params, device) -> dict:
     """The hybrid's Mamba layer at the prefill's shape (one prompt of
-    PROMPT_LEN tokens), timed alone: the plain scan (``_mamba_scan_chunked``
+    PROMPT_LEN tokens), timed alone: the plain scan (``ref.scan_chunked``
     on fp32 decays and inputs [1, T, d_inner, d_state]) and the whole
     ``mamba_fwd``.  Their device ms per call, and per prefill over every
     Mamba layer (attn_every - 1 a superblock)."""
@@ -135,8 +136,8 @@ def _mamba_windows(cfg, params, device) -> dict:
     h0 = torch.zeros(shape[:1] + shape[2:], device=device)
     x = torch.randn(1, PROMPT_LEN, cfg.d_model, generator=g,
                     device=device).to(mp["in_proj"]["w"].dtype)
-    chunk = ssm._scan_chunk(PROMPT_LEN, cfg.ssm_chunk)
-    scan, _ = _window(lambda: ssm._mamba_scan_chunked(decay, inp, h0, chunk),
+    chunk = scan_chunk(PROMPT_LEN, cfg.ssm_chunk)
+    scan, _ = _window(lambda: scan_chunked(decay, inp, h0, chunk),
                       PREFILLS)
     layer, _ = _window(lambda: ssm.mamba_fwd(mp, x, cfg), PREFILLS)
     return {"mamba_layers": n_mamba, "scan": scan, "mamba_fwd": layer,

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..sharding.dtensor import is_dtensor, on_mesh
-from . import encdec, hybrid, rwkv_lm, transformer
+from . import encdec, hybrid, rwkv_lm, ssm, transformer
 from .transformer import LMOutputs
 
 __all__ = ["Model", "build_model", "lm_loss"]
@@ -68,6 +68,10 @@ class Model:
     prefill_chunk_paged: Optional[Callable[..., tuple]] = None
     init_chunk_state: Optional[Callable[[], Any]] = None
     commit_chunk_state: Optional[Callable[..., Any]] = None
+    #: () -> running totals the model keeps of its own work, by the names
+    #: of ``ServingEngine.io_stats``; the paged engine adds their change
+    #: over each chunk and decode call (the hybrid: ``ssm.TOKENS``)
+    counters: Optional[Callable[[], dict]] = None
     verify_paged: Optional[Callable[..., tuple]] = None
 
     @property
@@ -160,6 +164,7 @@ def _build(cfg: ModelConfig, dev: torch.device) -> Model:
                                                                     dev),
             commit_chunk_state=lambda cache, state, slot:
                 hybrid.hybrid_commit_chunk_state(cache, state, slot, cfg),
+            counters=lambda: dict(ssm.TOKENS),
         )
     if cfg.family == "encdec":
         return Model(

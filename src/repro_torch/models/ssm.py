@@ -12,23 +12,31 @@ carries the state from chunk to chunk and composes each chunk's steps with
 an associative scan, in fp32.  Decode is the plain one-step recurrence.
 
 Mamba (S6):  h_t = exp(Δ_t A) h_{t-1} + Δ_t B_t x_t ;  y_t = C_tᵀ h_t + D x_t
-The reference has no Mamba kernel, and neither has the port: prefill runs
-the reference's chunked scan in plain PyTorch (fp32 Δ, B, C, decays and
-state), decode the one-step recurrence.  With ``cfg.mamba_inner_norm`` (a
-port-only field; Jamba's published mixer) x_proj's three parts, the
-dt_rank-wide Δ input and the d_state-wide B and C, each go through an
-RMSNorm with its own weight (``dt_norm``, ``b_norm``, ``c_norm``; eps
-``norm_eps``) before dt_proj and the scan, in prefill and decode alike.
-The scan's chunk is chosen from the length of each call (``_scan_chunk``):
-the plain scan issues about 2 (c - 1) + T / c launches for T steps in
-chunks of c, fewest near c = sqrt(T / 2), and ``cfg.ssm_chunk`` is the
-largest chunk it takes; the chunk moves only fp32 rounding.
+The reference has no Mamba kernel; the port has two (``kernels/mamba_scan``):
+between in_proj and out_proj a layer call is the conv (``mamba_conv``),
+x_proj, the Δ norm and dt_proj (plain GEMMs), and the selective scan
+(``mamba_scan``: B and C through their norms, Δ, the decays, the state in
+fp32, y and the gate).  They run under ``cfg.use_flash`` on CUDA tensors,
+where a call that a backward pass can follow raises (training takes
+``use_flash=False``); a CPU tensor, and ``use_flash`` off, take the plain
+code (``kernels/mamba_scan/ref.py``: prefill the reference's chunked scan,
+decode the one-step recurrence, fp32 Δ, B, C, decays and state).
+``TOKENS`` counts the rows x steps the layers ran, and those of them the
+kernels took.  With
+``cfg.mamba_inner_norm`` (a port-only field; Jamba's published mixer)
+x_proj's three parts, the dt_rank-wide Δ input and the d_state-wide B and
+C, each go through an RMSNorm with its own weight (``dt_norm``,
+``b_norm``, ``c_norm``; eps ``norm_eps``) before dt_proj and the scan, in
+prefill and decode alike.  The plain scan's chunk is chosen from the
+length of each call (``ref.scan_chunk``, at most ``cfg.ssm_chunk``); the
+chunk moves only fp32 rounding.
 Spans (``trace``): ``mamba.prefill`` and ``mamba.decode`` around one
 layer's work from in_proj to out_proj (attr ``tokens``), ``mamba.scan``
-around the chunked scan inside ``mamba.prefill``.
+around the selective scan inside ``mamba.prefill``.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple, Optional
 
 import torch
@@ -36,6 +44,8 @@ import torch.nn.functional as F
 
 from .. import trace
 from ..configs.base import ModelConfig
+from ..kernels.mamba_scan import mamba_conv, mamba_scan
+from ..kernels.mamba_scan.ref import mamba_conv_plain, mamba_scan_plain
 from ..kernels.wkv6 import wkv6
 from ..sharding.dtensor import flatten, shard_map, unflatten
 from .layers import (group_norm, init_group_norm, init_linear,
@@ -43,7 +53,13 @@ from .layers import (group_norm, init_group_norm, init_linear,
 
 __all__ = ["init_rwkv_time_mix", "rwkv_time_mix", "rwkv_time_mix_decode",
            "init_rwkv_channel_mix", "rwkv_channel_mix", "RWKVState",
-           "init_mamba", "mamba_fwd", "mamba_decode", "MambaState"]
+           "init_mamba", "mamba_fwd", "mamba_decode", "MambaState",
+           "TOKENS"]
+
+#: running totals of the rows x steps the Mamba layers ran, and of those
+#: the kernels took; the serving engine reads them by difference
+#: (``Model.counters``)
+TOKENS = {"mamba_layer_tokens": 0, "mamba_kernel_tokens": 0}
 
 
 class RWKVState(NamedTuple):
@@ -286,87 +302,6 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def _mamba_scan_chunked(a_t: torch.Tensor, b_t: torch.Tensor,
-                        h0: torch.Tensor, chunk: int):
-    """h_t = a_t * h_{t-1} + b_t over time.  a_t, b_t: [B, T, di, ds] fp32;
-    h0: [B, di, ds].  Returns (every h_t [B, T, di, ds], h_T).
-
-    The reference's chunked scan: T padded to chunks of ``chunk`` with
-    identity steps (decay 1, input 0), an inclusive scan of (a, b) under
-    (a1, b1) ∘ (a2, b2) = (a1 a2, a2 b1 + b2) inside each chunk, and an
-    outer loop over the chunks that carries h.  The inner scans of all
-    chunks run at once, a step at a time (``chunk`` - 1 steps, each over
-    every chunk); they only ever multiply decays, so a chunk's cumulative
-    decay may underflow to 0 where Δ·A sums below -87 without a division
-    by it.  Without autograd the steps are written in place (``out=``);
-    where a backward pass can follow, each step is a tensor of its own and
-    the steps are stacked, with the same operations in the same order, so
-    both forms give the same bits."""
-    b, t, di, ds = a_t.shape
-    c = min(chunk, t)
-    pad = (-t) % c
-    if pad:
-        a_t = F.pad(a_t, (0, 0, 0, 0, 0, pad), value=1.0)
-        b_t = F.pad(b_t, (0, 0, 0, 0, 0, pad))
-    n = (t + pad) // c
-    a = a_t.reshape(b, n, c, di, ds)
-    b_in = b_t.reshape(b, n, c, di, ds)
-    if torch.is_grad_enabled() and (a.requires_grad or b_in.requires_grad
-                                    or h0.requires_grad):
-        a_steps, b_steps = [a[:, :, 0]], [b_in[:, :, 0]]
-        for j in range(1, c):
-            b_steps.append(torch.addcmul(b_in[:, :, j], a[:, :, j],
-                                         b_steps[-1]))
-            a_steps.append(torch.mul(a_steps[-1], a[:, :, j]))
-        a_cum = torch.stack(a_steps, 2)
-        b_cum = torch.stack(b_steps, 2)
-    else:
-        a_cum = a.clone()
-        b_cum = b_in.clone()
-        for j in range(1, c):
-            torch.addcmul(b_cum[:, :, j], a[:, :, j], b_cum[:, :, j - 1],
-                          out=b_cum[:, :, j])
-            torch.mul(a_cum[:, :, j - 1], a[:, :, j], out=a_cum[:, :, j])
-    # the carry: h entering each chunk, then h_t = b_cum + a_cum h_in
-    h, h_in = h0, []
-    for i in range(n):
-        h_in.append(h)
-        h = torch.addcmul(b_cum[:, i, -1], a_cum[:, i, -1], h)
-    hs = torch.addcmul(b_cum, a_cum, torch.stack(h_in, 1)[:, :, None])
-    return hs.reshape(b, n * c, di, ds)[:, :t], h
-
-
-def _scan_chunk(t: int, cap: int) -> int:
-    """The chunk of ``_mamba_scan_chunked`` for ``t`` steps: of 1..``cap``
-    the one that issues the fewest launches, 2 (c - 1) + ceil(t / c) (the
-    inner steps' two ops each, the carry's one a chunk), the largest of
-    equals.  A 512-token prefill chunk takes 16 (66 launches against 138
-    at 64), a 3072-token prompt 41."""
-    return min(range(1, max(1, min(cap, t)) + 1),
-               key=lambda c: (2 * (c - 1) + -(-t // c), -c))
-
-
-def _mamba_ssm_inputs(p: dict, xc: torch.Tensor, cfg: ModelConfig):
-    """Δ [..., di], the decays exp(Δ A) [..., di, ds], the inputs
-    Δ x B [..., di, ds] and C [..., ds], all fp32, from the conv output."""
-    dtr, ds = cfg.resolved_dt_rank, cfg.mamba_d_state
-    proj = linear(p["x_proj"], xc)
-    dt, bmat, cmat = (proj[..., :dtr], proj[..., dtr:dtr + ds],
-                      proj[..., dtr + ds:])
-    if _inner_norm(cfg):
-        eps = cfg.norm_eps
-        dt = rms_norm(p["dt_norm"], dt, eps)
-        bmat = rms_norm(p["b_norm"], bmat, eps)
-        cmat = rms_norm(p["c_norm"], cmat, eps)
-    dt = F.softplus(linear(p["dt_proj"], dt).float())
-    bmat = bmat.float()
-    cmat = cmat.float()
-    a = -torch.exp(p["a_log"])                                 # [di, ds]
-    decay = torch.exp(dt[..., None] * a)
-    inp = (dt * xc.float())[..., None] * bmat[..., None, :]
-    return decay, inp, cmat
-
-
 #: the Mamba layer's weights between its two projections, flat for
 #: ``shard_map`` (small beside in_proj and out_proj, so replicated there)
 _MIX_LEAVES = (("conv_w",), ("conv_b",), ("x_proj", "w"), ("dt_proj", "w"),
@@ -401,6 +336,38 @@ def _by_rows(fn, tensors, weights, n_out: int):
                      (rows,) * n_out, 1)
 
 
+def _mixer(cfg: ModelConfig, x: torch.Tensor):
+    """The conv and the scan a layer call takes: under ``cfg.use_flash``
+    on a CUDA tensor the kernels (whose wrappers launch or raise: a call
+    that a backward pass can follow raises, so training takes
+    ``use_flash=False``); otherwise the plain functions, the scan's chunk
+    bound to ``cfg.ssm_chunk`` (on a CPU tensor the wrappers would run the
+    same code).  Counts the call's rows x steps in ``TOKENS``."""
+    kernel = cfg.use_flash and x.device.type != "cpu"
+    n = x.shape[0] * (x.shape[1] if x.dim() == 3 else 1)
+    TOKENS["mamba_layer_tokens"] += n
+    if kernel:
+        TOKENS["mamba_kernel_tokens"] += n
+        return mamba_conv, mamba_scan
+    return mamba_conv_plain, partial(mamba_scan_plain, chunk=cfg.ssm_chunk)
+
+
+def _scan_args(q: dict, xc: torch.Tensor, z: torch.Tensor,
+               h0: torch.Tensor, cfg: ModelConfig) -> tuple:
+    """The scan's arguments from the conv's output: x_proj, the Δ norm and
+    dt_proj run here (GEMMs, plain); the scan reads B and C in x_proj's
+    output in place."""
+    dtr = cfg.resolved_dt_rank
+    proj = linear(q["x_proj"], xc)
+    dt = proj[..., :dtr]
+    norm = _inner_norm(cfg)
+    if norm:
+        dt = rms_norm(q["dt_norm"], dt, cfg.norm_eps)
+    return (xc, linear(q["dt_proj"], dt), proj[..., dtr:], z, q["a_log"],
+            q["d_skip"], h0, q["b_norm"]["scale"] if norm else None,
+            q["c_norm"]["scale"] if norm else None, cfg.norm_eps)
+
+
 def mamba_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig,
               state: Optional[MambaState] = None):
     """Train/prefill.  x: [B, T, D] -> (y [B, T, D], MambaState)."""
@@ -412,22 +379,16 @@ def mamba_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig,
             b, dc - 1, di, dtype=u.dtype, device=x.device)
         h0 = state.h if state is not None else torch.zeros(
             b, di, ds, dtype=torch.float32, device=x.device)
+        conv, scan = _mixer(cfg, x)
 
         def mix(u, prev, h0, *ws):
             q = _mix_params(ws)
             xi, z = u.chunk(2, dim=-1)
-            # depthwise causal conv1d over time
-            xpad = torch.cat([prev, xi], dim=1)
-            conv_state = xpad[:, -(dc - 1):] if dc > 1 else prev
-            xc = sum(xpad[:, i:i + t] * q["conv_w"][i] for i in range(dc))
-            xc = F.silu(xc + q["conv_b"])
-            decay, inp, cmat = _mamba_ssm_inputs(q, xc, cfg)
+            xc, conv_state = conv(xi, prev, q["conv_w"], q["conv_b"])
+            args = _scan_args(q, xc, z, h0, cfg)
             with trace.span("mamba.scan"):
-                hs, h_end = _mamba_scan_chunked(
-                    decay, inp, h0, _scan_chunk(t, cfg.ssm_chunk))
-            y = torch.einsum("btds,bts->btd", hs, cmat)
-            y = (y + xc.float() * q["d_skip"]).to(x.dtype)
-            return y * F.silu(z), conv_state, h_end
+                y, h_end = scan(*args)
+            return y, conv_state, h_end
 
         y, conv_state, h_end = _by_rows(mix, (u, prev, h0),
                                         _mix_weights(p, cfg), 3)
@@ -438,17 +399,14 @@ def mamba_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
                  state: MambaState):
     """One-token decode; x: [B, 1, D].  Returns (y, the next MambaState);
     the state passed in is not modified."""
-    def mix(u, conv, h, *ws):
+    conv, scan = _mixer(cfg, x)
+
+    def mix(u, conv_state, h, *ws):
         q = _mix_params(ws)
-        xi, z = u.chunk(2, dim=-1)                            # [B, 1, di]
-        xfull = torch.cat([conv, xi], dim=1)                  # [B, dc, di]
-        xc = F.silu(torch.einsum("bcd,cd->bd", xfull, q["conv_w"])
-                    + q["conv_b"])                            # [B, di]
-        decay, inp, cmat = _mamba_ssm_inputs(q, xc, cfg)
-        h = decay * h + inp
-        y = torch.einsum("bds,bs->bd", h, cmat)
-        y = (y + xc.float() * q["d_skip"]).to(x.dtype)
-        return y[:, None] * F.silu(z), xfull[:, 1:], h
+        xi, z = u[:, 0].chunk(2, dim=-1)                      # [B, di]
+        xc, conv_state = conv(xi, conv_state, q["conv_w"], q["conv_b"])
+        y, h = scan(*_scan_args(q, xc, z, h, cfg))
+        return y[:, None], conv_state, h
 
     with trace.span("mamba.decode", tokens=x.shape[0]):
         y, conv, h = _by_rows(mix, (linear(p["in_proj"], x), state.conv,

@@ -38,7 +38,13 @@ decode slot.  It is dropped wherever the request's blocks are released
 (finish, prune, preemption, steal), so a resumed prefill restarts from
 chunk 0; ``io_stats`` counts ``mamba_states_staged``,
 ``mamba_states_committed`` and the bytes staged now,
-``mamba_staged_bytes``.  Such a model takes no prefix cache.
+``mamba_staged_bytes``.  Such a model takes no prefix cache.  Where the
+model keeps counters of its own work (``Model.counters``), the paged
+engine adds to ``io_stats`` what they moved by over each chunk and decode
+call: the hybrid's ``mamba_layer_tokens`` (rows x steps its Mamba layers
+ran: chunk tokens and decoded rows, every slot of a decode call, times the
+Mamba layers) and ``mamba_kernel_tokens`` (those of them the Mamba
+kernels took).
 """
 from __future__ import annotations
 
@@ -150,6 +156,9 @@ class ServingEngine:
             self.io_stats.update(mamba_states_staged=0,
                                  mamba_states_committed=0,
                                  mamba_staged_bytes=0)
+        self._counters = model.counters if self.paged else None
+        if self._counters is not None:
+            self.io_stats.update(dict.fromkeys(self._counters(), 0))
         #: rids whose current prefill cycle already hit the stats
         self._stat_seen: set = set()
         #: (token_bytes, keys) memo keyed by content
@@ -352,6 +361,17 @@ class ServingEngine:
             self.io_stats["mamba_staged_bytes"] += _nbytes(st)
             return st
         return self._staged[req.rid]
+
+    def _counted(self, fn, *args):
+        """``fn(*args)``, a paged chunk or decode call, with what it moved
+        the model's counters by added to ``io_stats``."""
+        if self._counters is None:
+            return fn(*args)
+        before = self._counters()
+        out = fn(*args)
+        for k, n in self._counters().items():
+            self.io_stats[k] += n - before[k]
+        return out
 
     def _commit_chunk_state(self, rid: int, slot: int) -> None:
         st = self._staged.get(rid) if self._staged else None
@@ -701,8 +721,9 @@ class ServingEngine:
             batch = {"tokens": self._upload(toks[None, :].astype(np.int64))}
             if self._init_state is not None:
                 batch["mamba_state"] = self._chunk_state(req)
-            logits, self.cache = self._prefill_chunk(
-                self.params, batch, self.cache, self._row_dev(rid), start)
+            logits, self.cache = self._counted(
+                self._prefill_chunk, self.params, batch, self.cache,
+                self._row_dev(rid), start)
         else:
             toks = self._upload(self.prompts[rid][None, :].astype(np.int64))
             logits, cache_one = self._prefill(self.params, {"tokens": toks})
@@ -803,8 +824,9 @@ class ServingEngine:
             io["kv_live_tokens"] += int(np.minimum(
                 self.slot_pos[active] + 1, self.cap).sum())
             io["kv_view_tokens"] += len(self.slot_req) * self.cap
-            logits, self.cache = self._decode(
-                self.params, tokens, self.cache, self._table_dev, pos_vec)
+            logits, self.cache = self._counted(
+                self._decode, self.params, tokens, self.cache,
+                self._table_dev, pos_vec)
         else:
             logits, self.cache = self._decode(
                 self.params, tokens, self.cache, pos_vec)

@@ -30,8 +30,8 @@ Whoever turns tracing on reads the records with :func:`take`.  The spans
 * ``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``: one
   MoE layer;
 * ``mamba.prefill``, ``mamba.decode``: one Mamba layer's work from in_proj
-  to out_proj (attr ``tokens``); ``mamba.scan``: the chunked scan inside
-  ``mamba.prefill``;
+  to out_proj (attr ``tokens``); ``mamba.scan``: the selective scan inside
+  ``mamba.prefill`` (the ``mamba_scan`` kernel, or the plain chunked scan);
 * ``hybrid.state_commit``: a chunk-prefilled request's carried Mamba state
   copied into its decode slot after its last chunk.
 

@@ -8,6 +8,7 @@ import pytest
 
 from repro_torch.kernels._build import CudaLibrary
 from repro_torch.kernels.flash_attention import build as flash_build
+from repro_torch.kernels.mamba_scan import build as mamba_build
 from repro_torch.kernels.moe_dispatch import build as dispatch_build
 from repro_torch.kernels.moe_gmm import build as gmm_build
 from repro_torch.kernels.prefix_scan import build as scan_build
@@ -41,7 +42,7 @@ def test_digest_changes_with_a_new_or_renamed_file(tmp_path):
 
 
 @pytest.mark.parametrize("build", [flash_build, gmm_build, scan_build,
-                                   wkv_build, dispatch_build])
+                                   wkv_build, dispatch_build, mamba_build])
 def test_each_kernel_hashes_its_csrc(build):
     """Every kernel's source lies in its own csrc/, so no two share a hash
     input, and the digest names a 16-hex-digit library."""
@@ -69,7 +70,7 @@ def _c_params(source: str, fn: str) -> list:
 
 
 @pytest.mark.parametrize("build", [flash_build, gmm_build, scan_build,
-                                   wkv_build, dispatch_build])
+                                   wkv_build, dispatch_build, mamba_build])
 def test_c_signatures_match_the_source(build):
     """Every function a library declares to ctypes has, argument by
     argument, the C types of its definition in the .cu file: a pointer

@@ -12,6 +12,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+from repro_torch.kernels.mamba_scan import ops as mamba_ops
+from repro_torch.kernels.mamba_scan import ref as mamba_ref
 from repro_torch.kernels.moe_dispatch import ops as md_ops
 from repro_torch.kernels.moe_dispatch import ref as md_ref
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
@@ -791,3 +793,150 @@ def test_encdec_decode_step_flash_matches_plain_on_card(dtype, rel):
     want = want.float()
     err = (got.float() - want).abs().max().item()
     assert err <= rel * want.abs().max().item()
+
+
+#: Jamba's Mamba widths: d_inner, d_state, dt_rank, d_conv
+JAMBA_MAMBA = (8192, 16, 256, 4)
+
+
+def _mamba_inputs(b, t, step, dtype, norm, seed=0):
+    """The two kernels' inputs at Jamba's widths: x and z in place in
+    in_proj's output, B and C in place in x_proj's, a random conv state
+    and h0, Δ's pre-activation around softplus^-1(0.05), and channel 5's
+    Δ at 200 (Δ·A at most -200: its decays underflow to 0).  ``step``: decode's
+    one-step shapes [B, ...]."""
+    di, ds, dtr, dc = JAMBA_MAMBA
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale
+                + shift).to(dtype)
+    u = rand(b, t, 2 * di)
+    proj = rand(b, t, dtr + 2 * ds)
+    dt = rand(b, t, di, scale=0.5, shift=-3.0)
+    dt[..., 5] = 200.0
+    xs = dict(x=u[..., :di], z=u[..., di:], bc=proj[..., dtr:], dt=dt,
+              xc=torch.nn.functional.silu(rand(b, t, di).float()).to(dtype))
+    if step:
+        xs = {k: v[:, 0] for k, v in xs.items()}
+    xs.update(
+        conv=rand(b, dc - 1, di), w=rand(dc, di, scale=0.5),
+        bias=rand(di, scale=0.1),
+        a_log=torch.log(torch.arange(1, ds + 1, device="cuda").float()
+                        ).repeat(di, 1)
+        + torch.rand(di, ds, generator=g, device="cuda"),
+        d_skip=torch.randn(di, generator=g, device="cuda"),
+        h0=torch.randn(b, di, ds, generator=g, device="cuda"),
+        b_norm=rand(ds, scale=0.1, shift=1.0) if norm else None,
+        c_norm=rand(ds, scale=0.1, shift=1.0) if norm else None)
+    return xs
+
+
+def _scan_args(xs):
+    return (xs["xc"], xs["dt"], xs["bc"], xs["z"], xs["a_log"],
+            xs["d_skip"], xs["h0"], xs["b_norm"], xs["c_norm"], 1e-6)
+
+
+def _mamba_close(got, want, tol):
+    want = want.float()
+    err = (got.float() - want).abs().max().item()
+    assert err <= tol * max(1.0, want.abs().max().item()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("norm", [True, False], ids=["norms", "plain"])
+@pytest.mark.parametrize("b,t,step", [(32, 1, True), (1, 512, False),
+                                      (1, 77, False)])
+def test_mamba_kernels_match_plain_on_card(b, t, step, norm, dtype, tol):
+    """Each kernel against ``ref.py`` on the same inputs at Jamba's widths:
+    decode (B = 32, one step), a 512-token chunk and a ragged 77; the
+    next conv state equal, y and h_end within the dtype's tolerance (the
+    conv sums in fp32 where the plain prefill rounds every add to the
+    model dtype; the scan walks the steps where the plain one composes
+    chunks), an underflowing channel included; the state passed in kept;
+    two launches, B x T tokens counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    xs = _mamba_inputs(b, t, step, getattr(torch, dtype), norm)
+    h0, conv = xs["h0"].clone(), xs["conv"].clone()
+    before = mamba_ops.mamba_scan.launches, mamba_ops.mamba_scan.tokens
+    xc, state = mamba_ops.mamba_conv(xs["x"], xs["conv"], xs["w"],
+                                     xs["bias"])
+    y, h = mamba_ops.mamba_scan(*_scan_args(xs))
+    torch.cuda.synchronize()
+    assert (mamba_ops.mamba_scan.launches, mamba_ops.mamba_scan.tokens) \
+        == (before[0] + 2, before[1] + b * t)
+    want_xc, want_state = mamba_ref.mamba_conv_plain(xs["x"], xs["conv"],
+                                                     xs["w"], xs["bias"])
+    want_y, want_h = mamba_ref.mamba_scan_plain(*_scan_args(xs))
+    assert xc.shape == want_xc.shape and y.shape == want_y.shape
+    assert torch.equal(state, want_state)
+    _mamba_close(xc, want_xc, tol)
+    _mamba_close(y, want_y, tol)
+    _mamba_close(h, want_h, tol)
+    assert torch.isfinite(h).all() and torch.isfinite(y.float()).all()
+    assert torch.equal(xs["h0"], h0) and torch.equal(xs["conv"], conv)
+
+
+@pytest.mark.cuda
+def test_mamba_wrappers_refuse_on_card():
+    """On the card a wrapper raises on what its kernel does not take: a
+    wrong dtype, a tensor on another device, a wrong shape, a d_state or
+    d_conv the kernels lack, rows that do not flatten to one stride, one
+    inner norm without the other, inputs that require grad."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    xs = _mamba_inputs(2, 5, False, torch.bfloat16, True)
+    conv = (xs["x"], xs["conv"], xs["w"], xs["bias"])
+    with pytest.raises(TypeError):
+        mamba_ops.mamba_conv(xs["x"].half(), *conv[1:])
+    with pytest.raises(ValueError):
+        mamba_ops.mamba_conv(xs["x"], xs["conv"].float(), *conv[2:])
+    with pytest.raises(ValueError):
+        mamba_ops.mamba_conv(*conv[:3], xs["bias"].cpu())
+    with pytest.raises(ValueError):
+        mamba_ops.mamba_conv(*conv[:2], torch.cat([xs["w"]] * 2), xs["bias"])
+    with pytest.raises(ValueError):
+        mamba_ops.mamba_conv(xs["x"].transpose(0, 1), *conv[1:])
+    args = list(_scan_args(xs))
+    for i, bad in ((6, xs["h0"][..., :12].contiguous()),
+                   (6, xs["h0"].cpu()), (5, xs["d_skip"].bfloat16()),
+                   (4, xs["a_log"][:-1]), (1, xs["dt"][:, :4]),
+                   (8, None), (0, xs["xc"].float())):
+        with pytest.raises((TypeError, ValueError)):
+            mamba_ops.mamba_scan(*args[:i], bad, *args[i + 1:])
+    args[0] = args[0].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="has no backward pass"):
+        mamba_ops.mamba_scan(*args)
+
+
+@pytest.mark.cuda
+def test_mamba_layer_grad_call_raises_on_card():
+    """A Mamba layer call under ``use_flash`` on the card takes the
+    kernels, which have no backward pass: with a weight that requires grad
+    it raises, where the plain route (``use_flash=False``, training's)
+    gives the gradient; under no_grad the kernels take every token."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.configs import get_config, scale_down
+    from repro_torch.models import ssm
+    cfg = scale_down(get_config("jamba-v0.1-52b"), d_model=32).replace(
+        mamba_inner_norm=True, dtype="float32", param_dtype="float32",
+        use_flash=True)
+    p = ssm.init_mamba(torch.Generator(device="cuda").manual_seed(0), cfg,
+                       torch.float32)
+    x = torch.randn(2, 7, cfg.d_model, device="cuda")
+    p["a_log"].requires_grad_()
+    with pytest.raises(RuntimeError, match="has no backward pass"):
+        ssm.mamba_fwd(p, x, cfg)
+    y, st = ssm.mamba_fwd(p, x, cfg.replace(use_flash=False))
+    (y.sum() + st.h.sum()).backward()
+    assert p["a_log"].grad is not None
+    assert torch.isfinite(p["a_log"].grad).all()
+    before = dict(ssm.TOKENS)
+    with torch.no_grad():
+        ssm.mamba_fwd(p, x, cfg)
+    assert {k: n - before[k] for k, n in ssm.TOKENS.items()} == {
+        "mamba_layer_tokens": 14, "mamba_kernel_tokens": 14}

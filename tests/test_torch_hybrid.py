@@ -23,6 +23,7 @@ import torch
 from repro.models import build_model as jax_build_model
 from repro.models import ssm as jssm
 from repro.serving import ServingEngine as JaxEngine
+from repro_torch.kernels.mamba_scan.ref import scan_chunked
 from repro_torch.models import build_model
 from repro_torch.models import ssm as tssm
 from repro_torch.models.transformer import _layer
@@ -144,9 +145,8 @@ def test_mamba_scan_fast_decay():
     a[:, 10:20] = 1.0
     b = rng.standard_normal((1, t, di, ds)).astype(np.float32)
     h0 = rng.standard_normal((1, di, ds)).astype(np.float32)
-    hs, h_end = tssm._mamba_scan_chunked(torch.from_numpy(a),
-                                         torch.from_numpy(b),
-                                         torch.from_numpy(h0), 64)
+    hs, h_end = scan_chunked(torch.from_numpy(a), torch.from_numpy(b),
+                             torch.from_numpy(h0), 64)
     h, want = h0.astype(np.float64), []
     for i in range(t):
         h = a[:, i] * h + b[:, i]

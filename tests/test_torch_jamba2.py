@@ -10,7 +10,7 @@ flag; the spans.
 
 Two periods of four layers (attention at offset 2, MoE on every second
 layer), d_model 64, 4 experts, d_conv 4, d_state 8, scan chunks of at most
-5 (``models/ssm.py::_scan_chunk``: 4 over the prompt of 23, 2 over a
+5 (``kernels/mamba_scan/ref.py::scan_chunk``: 4 over the prompt of 23, 2 over a
 chunk of 7).
 Tolerance: 1e-5 of the compared tensor's scale, max(1, max |reference|):
 both sides compute in fp32 and sum the same products in other orders (the
@@ -31,7 +31,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.device.moe_balance import route_topk
 from repro_torch.kernels.moe_dispatch import moe_route
 from repro_torch.models import build_model
-from repro_torch.models.ssm import _scan_chunk
+from repro_torch.kernels.mamba_scan.ref import scan_chunk
 from repro_torch.serving import ServingEngine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -262,7 +262,7 @@ def test_scan_chunk_issues_fewest_launches(t, cap, want):
     equals."""
     def launches(c):
         return 2 * (c - 1) + -(-t // c)
-    assert _scan_chunk(t, cap) == want
+    assert scan_chunk(t, cap) == want
     assert launches(want) == min(launches(c) for c in range(1, cap + 1))
 
 

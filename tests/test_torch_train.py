@@ -39,7 +39,8 @@ from repro_torch.kernels.prefix_scan import prefix_scan
 from repro_torch.kernels.wkv6 import wkv6
 from repro_torch.models import build_model
 from repro_torch.models.model_zoo import _xent
-from repro_torch.models.ssm import _mamba_scan_chunked, mamba_fwd
+from repro_torch.kernels.mamba_scan.ref import scan_chunked
+from repro_torch.models.ssm import mamba_fwd
 from repro_torch.models.transformer import _layer
 from repro_torch.optim import (AdamWState, adamw_init, adamw_update,
                                global_norm, warmup_cosine)
@@ -56,7 +57,7 @@ ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
 #: family -> (arch, config overrides; the droppy MoE's capacity sheds
 #: assignments at this batch); the sequence (20) spans two scan chunks of
 #: the scaled-down RWKV (16) with a padded tail, and five of Mamba's (4,
-#: the chunk ``models/ssm.py::_scan_chunk`` takes for 20 steps)
+#: the chunk ``kernels/mamba_scan/ref.py::scan_chunk`` takes for 20 steps)
 FAMILIES = {"dense": ("qwen2-1.5b", {}),
             "moe": ("mixtral-8x22b", {}),
             "moe_droppy": ("mixtral-8x22b", {"moe_dropless": False,
@@ -336,9 +337,9 @@ def test_mamba_scan_grad_form_same_bits(t, chunk):
     b = torch.randn(2, t, 6, 4, generator=g)
     h0 = torch.randn(2, 6, 4, generator=g)
     with torch.no_grad():
-        hs, h = _mamba_scan_chunked(a, b, h0, chunk)
+        hs, h = scan_chunked(a, b, h0, chunk)
     leaves = [x.clone().requires_grad_() for x in (a, b, h0)]
-    hs2, h2 = _mamba_scan_chunked(*leaves, chunk)
+    hs2, h2 = scan_chunked(*leaves, chunk)
     assert hs2.grad_fn is not None
     assert torch.equal(hs, hs2.detach()) and torch.equal(h, h2.detach())
     (hs2.sum() + h2.sum()).backward()
